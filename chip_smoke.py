@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and hold each of
-its CUDA kernels against its plain PyTorch twin.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
+hold each of its CUDA kernels against its plain PyTorch twin.
 
   python3 chip_smoke.py [--seed 0]
 
@@ -9,7 +9,8 @@ beside itself and builds the kernels from `tpu_gaussians_torch/csrc/`).
 Phases, each of which fails the run by raising:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc for every kernel source, all started together
+  2. build    nvcc for every kernel source, all started together; nvcc's
+              seconds and ptxas' register and shared-memory lines
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -18,19 +19,34 @@ Phases, each of which fails the run by raising:
               jpg, png and raw; the raw frame is held against the same pose
               rendered through the kernel's plain twin (<= 1 LSB on <= 0.1%
               of values)
-  5. loop     cli.serve.run_loop, 50 frames (its JSON line)
-  6. kernel   the compositing kernel vs its plain twin on the main path's
-              inputs: 100k at 960x540 under both presets and 1M under the
-              interactive one; image and alpha within rtol 1e-4 / atol 1e-5,
+  5. loop     cli.serve.run_loop, 50 frames (its JSON line), then the
+              serving cells (100k under both presets, 1M interactive) with
+              a torch.profiler breakdown each
+  6. kernel   the compositing kernel (K3) vs its plain twin on the serving
+              path's inputs: image and alpha within rtol 1e-4 / atol 1e-5,
               and within exit_t on tiles whose whole-tile early-exit
-              decision differs; CUDA-event times, median of 20 after
-              warm-up; and a small scene through render(impl="tiled")
-              against the whole-frame plain renderer
-  7. report   one `kernels` JSON line, the nvidia-smi line, and last
+              decision differs; and a small scene through render(impl=
+              "tiled") against the plain renderer in both modes
+  7. fit      cli.fit.main on cuda with the flagship recipe (example scene,
+              150 iterations, --use_sh, 800 gaussians, 128x128, capacity
+              3000): loss.txt has 150 lines and its last loss is under half
+              its first, N grows at iteration 80, the four artifacts exist;
+              then a torch.profiler breakdown of train steps, and the band
+              kernels K1 (splat_sep_fwd) and K2 (splat_sep_bwd) against
+              their twins on the fitted model's staged inputs
+  8. scale    100,000 alive gaussians (the scene generator of phase 3), 4
+              orbit views at 512x512 (R = 32, 16 bands), random targets from
+              --seed: 10 train steps timed with CUDA events, a profile, and
+              K1/K2 against their twins on those staged inputs
+  9. report   one `kernels` JSON line, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
-The kernel launch counters are set to 0 just before phase 4 and read
-just after phase 5: every kernel of the path must have launched there.
+K1 is held to rtol 1e-5 / atol 1e-5; K2 to rtol 2e-4 and atol 2e-5 times
+the largest magnitude of its output column (its moments are sums of signed
+terms that cancel). Kernel and twin times are CUDA-event medians of 20
+after warm-up. The launch counters are set to 0 just before each main path
+(phases 4-5 for serving, the cli.fit.main call of phase 7 for training)
+and read just after: every kernel of the path must have launched there.
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.
 """
@@ -38,6 +54,7 @@ checkout.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import subprocess
@@ -58,6 +75,14 @@ F32_FLOPS_PER_S = 67e12
 # product and exponent terms, cutoff and clamp, T*a, four multiply-adds into
 # r, g, b, z (two each) and the transmittance update.
 SORTED_FLOPS_PER_EVAL = 16
+# f32 operations per (gaussian, band) pair and per pixel of the band: one
+# multiply-add per feature plane (5) in K1; two in K2 (the gG and gEx
+# products). The R + Wp exps per pair (a few percent) are not counted.
+SEP_FWD_FLOPS_PER_PIXEL = 2 * 5
+SEP_BWD_FLOPS_PER_PIXEL = 2 * 2 * 5
+FIT_ARGS = ["--targets_dir", "assets/example_scene", "--camera_npz",
+            "assets/example_scene/cameras.npz", "--iters", "150", "--use_sh",
+            "--num_gaussians", "800"]
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -235,11 +260,11 @@ def kernel_case(name, g, width, height, knobs, reps):
     return case
 
 
-def profile_frames(svc, width: int, height: int, frames: int = 10) -> dict:
-    """Device time per frame by CUDA kernel, from torch.profiler over
-    `frames` back-to-back renders; the device's busy share of the wall
-    time (the profiler's own host overhead included); and the top-level
-    torch operations the host dispatches per frame."""
+def profile_calls(fn, calls: int) -> dict:
+    """Device time per call by CUDA kernel, from torch.profiler over
+    `calls` back-to-back calls of fn(i); the device's busy share of the
+    wall time (the profiler's own host overhead included); and the
+    top-level torch operations the host dispatches per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -248,35 +273,40 @@ def profile_frames(svc, width: int, height: int, frames: int = 10) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(frames):
-            svc.render_tensor(0.013 * (2000 + i), 0.2, 2.5, width, height,
-                              "sorted")
+        for i in range(calls):
+            fn(i)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / frames
+        wall_ms = 1e3 * (time.perf_counter() - t0) / calls
     rows = [{"kernel": e.key[:90],
-             "ms_per_frame": e.self_device_time_total / 1e3 / frames,
-             "calls_per_frame": e.count / frames}
+             "ms_per_call": e.self_device_time_total / 1e3 / calls,
+             "calls_per_call": e.count / calls}
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r["ms_per_frame"])
-    busy = sum(r["ms_per_frame"] for r in rows)
+            and e.self_device_time_total > 0
+            and "#" not in e.key]          # not a range, e.g. Adam.step's
+    rows.sort(key=lambda r: -r["ms_per_call"])
+    busy = sum(r["ms_per_call"] for r in rows)
     host_ops = sum(1 for e in prof.events()
                    if e.device_type == DeviceType.CPU and e.cpu_parent is None
                    and e.name.startswith("aten::"))
-    return {"n": svc.n, "preset": svc.preset, "frames": frames,
-            "wall_ms_per_frame": wall_ms,
-            "device_busy_ms_per_frame": busy if rows else None,
+    return {"calls": calls, "wall_ms_per_call": wall_ms,
+            "device_busy_ms_per_call": busy if rows else None,
             "device_busy_share": busy / wall_ms if rows else None,
-            "kernels_per_frame": sum(r["calls_per_frame"] for r in rows),
-            "host_ops_per_frame": host_ops / frames,
+            "kernels_per_call": sum(r["calls_per_call"] for r in rows),
+            "host_ops_per_call": host_ops / calls,
             "top": rows[:12]}
 
 
+def profile_frames(svc, width: int, height: int, frames: int = 10) -> dict:
+    """profile_calls over `frames` served renders."""
+    out = profile_calls(lambda i: svc.render_tensor(
+        0.013 * (2000 + i), 0.2, 2.5, width, height, "sorted"), frames)
+    return {"n": svc.n, "preset": svc.preset, **out}
+
+
 def small_reference_check() -> None:
-    """render(impl="tiled") with the kernel against the whole-frame plain
-    renderer on a small scene."""
-    import numpy as np
+    """render(impl="tiled") with the kernels against the whole-frame plain
+    renderer on a small scene, in both compositing modes."""
     import torch
 
     from tpu_gaussians_torch.core import camera as cam
@@ -288,18 +318,199 @@ def small_reference_check() -> None:
     arr["scales"] *= 4.0
     g = gaussians_from_numpy(arr, device="cuda")
     c = cam.orbit_cameras(2, 256, 64, device="cuda")
-    cfg = RenderConfig(width=256, height=64, mode="sorted", return_aux=True)
+    for mode, rtol in (("sorted", 1e-4), ("accum", 1e-5)):
+        cfg = RenderConfig(width=256, height=64, mode=mode, return_aux=True)
+        with torch.no_grad():
+            tiled = render(g, c, cfg.replace(impl="tiled"))
+            plain = render(g, c, cfg.replace(impl="torch"))
+        for t, p in zip(tiled[:2], plain[:2]):
+            check(t.shape == p.shape and bool(torch.isfinite(t).all()),
+                  f"small {mode} render: bad shape or non-finite values")
+            check(bool(torch.allclose(t, p, rtol=rtol, atol=1e-5)),
+                  f"small {mode} render: tiled and plain renderers disagree "
+                  f"(max abs err {float((t - p).abs().max())})")
+        log(f"small scene, {mode}: render(impl='tiled') == render(impl="
+            f"'torch') (max abs err "
+            f"{float((tiled[0] - plain[0]).abs().max())})")
+
+
+def staged_sep(g, view, proj, width: int, height: int):
+    """K1/K2's inputs for one view, staged by the training path's own
+    ops/splat.stage: (lo, cnt, gdata, rows, wp, nb)."""
+    import torch
+
+    from tpu_gaussians_torch.ops import splat
+    from tpu_gaussians_torch.ops.common import prepare_splats
+
     with torch.no_grad():
-        tiled = render(g, c, cfg.replace(impl="tiled"))
-        plain = render(g, c, cfg.replace(impl="torch"))
-    for t, p in zip(tiled[:2], plain[:2]):
-        check(t.shape == p.shape and bool(torch.isfinite(t).all()),
-              "small render: bad shape or non-finite values")
-        check(bool(torch.allclose(t, p, rtol=1e-4, atol=1e-5)),
-              "small render: tiled and plain renderers disagree "
-              f"(max abs err {float((t - p).abs().max())})")
-    log("small scene: render(impl='tiled') == render(impl='torch') "
-        f"(max abs err {float((tiled[0] - plain[0]).abs().max())})")
+        s = prepare_splats(g, view, proj, width, height)
+        _, (lo, cnt, gdata, nb, wp, _, _, rows) = splat.stage(s, height,
+                                                               width)
+    return lo, cnt, gdata, rows, wp, nb
+
+
+def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
+    """K1 and K2 against their plain twins on one set of staged inputs:
+    errors, CUDA-event times and bounds. Raises if either disagrees."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import splat_sep as K
+
+    lo, cnt, gdata, rows, wp, nb = staged
+    with torch.no_grad():
+        acc = K.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
+        ref = K.sep_fwd_plain(lo, cnt, gdata, rows, wp, nb)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        gband = torch.randn(acc.shape, generator=gen, device="cuda")
+        out = K.splat_sep_bwd(lo, cnt, gdata, gband, rows, wp, nb)
+        again = K.splat_sep_bwd(lo, cnt, gdata, gband, rows, wp, nb)
+        ref_b = K.sep_bwd_plain(lo, cnt, gdata, gband, rows, wp, nb)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(acc).all() and torch.isfinite(out).all()),
+              f"{name}: non-finite kernel output")
+        err_f = float((acc - ref).abs().max())
+        check(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
+              f"{name}: K1 disagrees with its twin (max abs err {err_f})")
+        scale = torch.clamp(ref_b.abs().amax(dim=0), min=1.0)
+        bad = (out - ref_b).abs() > 2e-4 * ref_b.abs() + 2e-5 * scale
+        err_b = float((out - ref_b).abs().max())
+        check(not bool(bad.any()),
+              f"{name}: K2 disagrees with its twin in {int(bad.sum())} "
+              f"values (max abs err {err_b})")
+        check(bool(torch.equal(out, again)), f"{name}: K2 not deterministic")
+        times = {
+            "fwd_ms": time_ms(lambda: K.splat_sep_fwd(
+                lo, cnt, gdata, rows, wp, nb), reps),
+            "fwd_plain_ms": time_ms(lambda: K.sep_fwd_plain(
+                lo, cnt, gdata, rows, wp, nb), reps),
+            "bwd_ms": time_ms(lambda: K.splat_sep_bwd(
+                lo, cnt, gdata, gband, rows, wp, nb), reps),
+            "bwd_plain_ms": time_ms(lambda: K.sep_bwd_plain(
+                lo, cnt, gdata, gband, rows, wp, nb), reps),
+        }
+    # The least the card could take: the (gaussian, band) pairs this
+    # run's block ranges evaluate, at the f32 multiply-adds each needs
+    # per band pixel, against gdata, lo/cnt and the band planes read or
+    # written once (K2 also writes its (n_pad, 16) rows).
+    pairs = int(cnt.to(torch.int64).sum()) * nb
+    # Of those, the pairs whose gaussian has weight (op > 0): the bound
+    # above also counts the dead slots of the capacity in each block.
+    alive = torch.cat([cnt.new_zeros(1, dtype=torch.int64),
+                       (gdata[:, 5] > 0).reshape(-1, nb).sum(1).cumsum(0)])
+    lo64 = lo.to(torch.int64)
+    alive_pairs = int((alive[lo64 + cnt] - alive[lo64]).sum())
+    bands = int((cnt > 0).sum())
+    n_bands = lo.shape[0]
+    band_bytes = n_bands * K.FEAT * rows * wp * 4
+    in_bytes = gdata.numel() * 4 + 2 * n_bands * 4
+    bounds = {}
+    for kind, flops_px, nbytes in (
+            ("fwd", SEP_FWD_FLOPS_PER_PIXEL, in_bytes + band_bytes),
+            ("bwd", SEP_BWD_FLOPS_PER_PIXEL,
+             in_bytes + band_bytes + gdata.numel() * 4)):
+        ops_ms = 1e3 * pairs * rows * wp * flops_px / F32_FLOPS_PER_S
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        bounds[f"{kind}_bound_ms"] = max(ops_ms, bytes_ms)
+        bounds[f"{kind}_bound_by"] = ("operations" if ops_ms >= bytes_ms
+                                      else "bytes")
+    case = {"case": name, "n_pad": gdata.shape[0], "nb": nb, "rows": rows,
+            "wp": wp, "n_bands": n_bands, "bands_with_work": bands,
+            "pairs_evaluated": pairs, "alive_pairs": alive_pairs,
+            "alive_share": alive_pairs / max(pairs, 1),
+            "fwd_max_abs_err": err_f,
+            "bwd_max_abs_err": err_b, **times, **bounds}
+    log("sep kernel case " + json.dumps(case))
+    return case
+
+
+def fit_phase(tmp: Path) -> dict:
+    """The training main path: cli.fit.main on the card with the flagship
+    recipe, launch counters from 0 just before it and read just after."""
+    import numpy as np
+
+    from tpu_gaussians_torch.cli import fit as fit_cli
+    from tpu_gaussians_torch.kernels import sorted_fwd, splat_sep
+
+    out_dir = tmp / "fit"
+    argv = [str(ROOT / a) if a.startswith("assets") else a
+            for a in FIT_ARGS] + ["--out_dir", str(out_dir), "--device",
+                                  "cuda"]
+    for k in splat_sep.launches:
+        splat_sep.launches[k] = 0
+    sorted_fwd.launches = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        fit_cli.main(argv)
+    main_s = time.perf_counter() - t0
+    log(printed.getvalue().rstrip())
+    launches = {**splat_sep.launches, "sorted_fwd": sorted_fwd.launches}
+    log(f"fit main path: kernel launches {launches}")
+
+    losses = [float(x) for x in
+              (out_dir / "loss.txt").read_text().splitlines()]
+    n_alive = [json.loads(line)["n_alive"] for line in
+               (out_dir / "metrics.jsonl").read_text().splitlines()]
+    check(len(losses) == 150, f"loss.txt has {len(losses)} lines")
+    check(bool(np.isfinite(losses).all()) and losses[-1] < 0.5 * losses[0],
+          f"loss went {losses[0]} -> {losses[-1]}: not under half")
+    check(n_alive[80] > n_alive[79],
+          f"N did not grow at iteration 80 ({n_alive[79]} -> {n_alive[80]})")
+    for name in ("gaussians_fitted.npz", "loss.txt", "metrics.jsonl",
+                 "preview_view0.png"):
+        check((out_dir / name).stat().st_size > 0, f"fit wrote no {name}")
+    for k in ("splat_sep_fwd", "splat_sep_bwd"):
+        check(launches[k] >= 150, f"{k} launched {launches[k]} times in a "
+              "150-step fit")
+    loop_s = float(printed.getvalue().split("Done in ")[1].split("s.")[0])
+    views, pix = 6, 128 * 128
+    out = {"iters": 150, "main_wall_s": main_s, "fit_loop_wall_s": loop_s,
+           "steps_per_s": 150 / loop_s,
+           "mpix_per_s": views * pix * 150 / loop_s / 1e6,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "n_first": n_alive[0], "n_last": n_alive[-1],
+           "launches": launches}
+    log("fit " + json.dumps(out))
+    return out
+
+
+def train_steps(raw, cameras, targets, masks, steps: int, profile: int):
+    """`steps` train steps timed with CUDA events (median and mean ms),
+    then a profile of `profile` more."""
+    import torch
+
+    from tpu_gaussians_torch.core.types import RenderConfig
+    from tpu_gaussians_torch.fit.loss import LossConfig
+    from tpu_gaussians_torch.fit.step import (
+        init_state, make_optimizer, make_train_step)
+
+    height, width = targets.shape[1:3]
+    state = init_state(raw, make_optimizer(0.02))
+    step = make_train_step(RenderConfig(width=width, height=height,
+                                        mode="accum", return_aux=True),
+                           LossConfig(), masks is not None, False)
+    zeros = torch.zeros_like(targets[..., 0])
+    m = zeros if masks is None else masks
+
+    def one(_):
+        step(state, cameras, targets, m, zeros)
+
+    one(0)
+    times = []
+    for i in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        one(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    prof = profile_calls(one, profile)
+    times.sort()
+    return {"steps": steps, "step_ms_median": times[len(times) // 2],
+            "step_ms_mean": sum(times) / steps,
+            "views": cameras.num_views(), "width": width, "height": height,
+            "capacity": raw.capacity, "profile": prof}, state
 
 
 def main() -> int:
@@ -316,18 +527,26 @@ def main() -> int:
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     from tpu_gaussians_torch.cli.serve import (
         INTERACTIVE_KNOBS, RenderService, run_loop)
     from tpu_gaussians_torch.core import camera as cam
     from tpu_gaussians_torch.core.types import (
-        Camera, gaussians_from_numpy, make_gaussians)
-    from tpu_gaussians_torch.io.npz import save_gaussians_npz
+        Camera, make_gaussians, resolve_device, to_device)
+    from tpu_gaussians_torch.fit.trainer import load_dataset
+    from tpu_gaussians_torch.io.npz import load_gaussians_npz, save_gaussians_npz
     from tpu_gaussians_torch.kernels import build, sorted_fwd
+    from tpu_gaussians_torch.models.gaussian_model import (
+        activate, raw_from_gaussians)
     from tpu_gaussians_torch.ops import sorted as tiled
     from tpu_gaussians_torch.ops.common import prepare_splats
     from tpu_gaussians_torch.ops.projection import camera_z
+    from tpu_gaussians_torch.utils.config import FitConfig
+
+    resolve_device("cuda")   # TF32 off for matmuls and convolutions
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is still on after resolve_device('cuda')")
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -432,9 +651,54 @@ def main() -> int:
     log(f"after kernel timing: sm clock, power, limit, temperature: "
         f"{clocks.stdout.strip()}")
     small_reference_check()
+    del svc
+
+    # 7. fit: the training main path, then its step profile and K1/K2 on
+    # the fitted model's inputs (padded to the fit's capacity, as in
+    # training)
+    fit = fit_phase(Path(tmp.name))
+    fit_dir = Path(tmp.name) / "fit"
+    g_fit = load_gaussians_npz(fit_dir / "gaussians_fitted.npz",
+                               device="cuda")
+    raw_fit = raw_from_gaussians(g_fit, capacity=3000)
+    cfg_fit = FitConfig(targets_dir=str(ROOT / "assets" / "example_scene"),
+                        camera_npz=str(ROOT / "assets" / "example_scene"
+                                       / "cameras.npz"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        targets, masks, _, cams = load_dataset(cfg_fit, device="cuda")
+    flag_steps, _ = train_steps(raw_fit, cams, to_device(targets, "cuda"),
+                                to_device(masks, "cuda"), steps=20,
+                                profile=10)
+    log("fit step profile, flagship " + json.dumps(flag_steps))
+    sep_cases = [sep_kernel_case(
+        "flagship_128x128_fitted", staged_sep(activate(raw_fit), cams.view[0],
+                                              cams.proj[0], 128, 128),
+        args.seed)]
+
+    # 8. at scale: 100k alive gaussians, 4 views at 512x512
+    n_s, side = 100_000, 512
+    raw_s = raw_from_gaussians(make_gaussians(
+        **scene_arrays(n_s, args.seed + 2), device="cuda"), capacity=n_s)
+    cams_s = cam.orbit_cameras(4, side, side, device="cuda")
+    rng = np.random.default_rng(args.seed)
+    targets_s = to_device(rng.uniform(0, 1, (4, side, side, 3)), "cuda")
+    masks_s = (targets_s.mean(dim=3) > 0.06).to(torch.float32)
+    scale_steps, state_s = train_steps(raw_s, cams_s, targets_s, masks_s,
+                                       steps=10, profile=3)
+    log("fit step profile, 100k 512x512 x4 " + json.dumps(scale_steps))
+    sep_cases.append(sep_kernel_case(
+        "100k_512x512", staged_sep(activate(state_s.raw), cams_s.view[0],
+                                   cams_s.proj[0], side, side), args.seed))
+    del state_s, raw_s, targets_s, masks_s
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    log(f"after training phases: sm clock, power, limit, temperature: "
+        f"{clocks.stdout.strip()}")
     tmp.cleanup()
 
-    # 7. report
+    # 9. report
     main_case = cases[0]
     kernels = [{
         "name": "sorted_fwd", "route": "cuda",
@@ -452,6 +716,27 @@ def main() -> int:
                                      "tiles_exit_differs")}
                   for c in cases],
     }]
+    for name, kind_, line in (("splat_sep_fwd", "fwd", 697),
+                              ("splat_sep_bwd", "bwd", 742)):
+        main_sep = sep_cases[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tpu_gaussians_torch/csrc/{name}.cu",
+            "replaces": f"tpu_gaussians/ops/pallas/splat.py:{line}",
+            "launches": fit["launches"][name],
+            "max_abs_err": max(c[f"{kind_}_max_abs_err"] for c in sep_cases),
+            "ms": main_sep[f"{kind_}_ms"], "kernel_ms": main_sep[f"{kind_}_ms"],
+            "plain_ms": main_sep[f"{kind_}_plain_ms"],
+            "bound_ms": main_sep[f"{kind_}_bound_ms"],
+            "bound_by": main_sep[f"{kind_}_bound_by"],
+            "library_ms": None,
+            "cases": [{"case": c["case"], "ms": c[f"{kind_}_ms"],
+                       "plain_ms": c[f"{kind_}_plain_ms"],
+                       "bound_ms": c[f"{kind_}_bound_ms"],
+                       "bound_by": c[f"{kind_}_bound_by"],
+                       "max_abs_err": c[f"{kind_}_max_abs_err"]}
+                      for c in sep_cases],
+        })
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,14 +1,21 @@
-"""The CUDA kernel on the card: `csrc/sorted_fwd.cu` against its plain twin,
-and the tiled render against the whole-frame plain renderer. Every test
-here needs an NVIDIA GPU and skips without one.
+"""The CUDA kernels on the card against their plain twins, and the tiled
+renders against the whole-frame plain renderer. Every test here needs an
+NVIDIA GPU and skips without one.
 
 This file imports torch only, so that it runs where JAX is not installed:
   python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Tolerance: the kernel updates T per gaussian, the twin per 128-slot
-sub-block (T *= 1 - sum of contributions), so they round differently:
-rtol 1e-4 / atol 1e-5; and on a tile whose whole-tile exit decision fell
-on the other side of exit_t, the bound is exit_t itself."""
+Tolerances:
+- sorted_fwd (K3): the kernel updates T per gaussian, the twin per
+  128-slot sub-block (T *= 1 - sum of contributions), so they round
+  differently: rtol 1e-4 / atol 1e-5; and on a tile whose whole-tile exit
+  decision fell on the other side of exit_t, the bound is exit_t itself.
+- splat_sep_fwd (K1): rtol 1e-5 / atol 1e-5, sums of positive terms in
+  another order.
+- splat_sep_bwd (K2): rtol 2e-4, and atol 2e-5 times the largest
+  magnitude of the output column (at least 2e-5): the moments are sums of
+  signed terms that cancel, whose f32 rounding is relative to the terms,
+  not to the sum."""
 
 import numpy as np
 import pytest
@@ -16,7 +23,9 @@ import torch
 
 from tpu_gaussians_torch.core import camera as tcam
 from tpu_gaussians_torch.core.types import RenderConfig, gaussians_from_numpy
-from tpu_gaussians_torch.kernels import sorted_fwd
+from tpu_gaussians_torch.kernels import sorted_fwd, splat_sep
+from tpu_gaussians_torch.ops import splat as tsplat
+from tpu_gaussians_torch.ops.common import SplatInputs
 from tpu_gaussians_torch.ops.dispatch import render
 
 TILES_X, TILES_Y, CAP = 2, 2, 1024
@@ -51,6 +60,70 @@ def synthetic_lists(axis, device="cpu", seed=0):
         rows[:, 10] = rng.uniform(1.0, 4.0, m)
     return (torch.from_numpy(gd.reshape(-1, 16)).to(device),
             torch.from_numpy(cnt).to(device))
+
+
+def synthetic_splats(n, height, width, seed=0, y_max=None, sigma_max=8.0):
+    """Axis-footprint splat columns (px, py, ca, cb, cc, op, feats) as
+    numpy f32, centres over the frame (or rows [0, y_max)), one in ten
+    with zero opacity."""
+    rng = np.random.default_rng(seed)
+    y_hi = height + 10 if y_max is None else y_max
+    sx, sy = rng.uniform(1.0, sigma_max, (2, n))
+    op = rng.uniform(0.0, 1.0, n)
+    op[rng.uniform(size=n) < 0.1] = 0.0
+    feats = np.concatenate([rng.uniform(0, 1, (n, 3)), np.ones((n, 1)),
+                            rng.uniform(1, 4, (n, 1))], axis=1)
+    cols = (rng.uniform(-10, width + 10, n), rng.uniform(-10, y_hi, n),
+            1.0 / sx ** 2, np.zeros(n), 1.0 / sy ** 2, op, feats)
+    return tuple(np.asarray(c, np.float32) for c in cols)
+
+
+def splat_inputs(cols, device="cpu"):
+    """SplatInputs of synthetic columns on `device` (sigma_x/y, which only
+    culling reads, are zeros)."""
+    px, py, ca, cb, cc, op, feats = (torch.from_numpy(c).to(device)
+                                     for c in cols)
+    zero = torch.zeros_like(px)
+    return SplatInputs(px, py, ca, cb, cc, zero, zero, op, feats)
+
+
+def staged(cols, height, width, device):
+    """(lo, cnt, gdata, rows, wp, nb) of the columns on `device`, staged by
+    the accumulation path's own ops/splat.stage."""
+    _, (lo, cnt, gdata, nb, wp, _, _, rows) = tsplat.stage(
+        splat_inputs(cols, device), height, width)
+    return lo, cnt, gdata, rows, wp, nb
+
+
+def assert_moments_close(out, ref):
+    """K2 rows against their reference at the tolerance stated above."""
+    out, ref = np.asarray(out), np.asarray(ref)
+    scale = np.maximum(np.abs(ref).max(axis=0), 1.0)
+    bad = np.abs(out - ref) > 2e-4 * np.abs(ref) + 2e-5 * scale
+    assert not bad.any(), (
+        f"{int(bad.sum())} values off; columns {sorted(set(np.where(bad)[1]))}")
+
+
+# Staged cases: a band with cnt = 0 (gaussians in the top rows only, n not
+# a multiple of nb), a gaussian straddling two bands, a 1-pixel-high frame,
+# and many gaussians per band (R = 32).
+SEP_CASES = {
+    "empty_bands": dict(n=700, height=256, width=96, y_max=60.0,
+                        sigma_max=3.0),
+    "straddle": dict(n=300, height=128, width=128),
+    "one_row": dict(n=200, height=1, width=200),
+    "many": dict(n=20000, height=96, width=256),
+}
+
+
+def sep_case(name, device):
+    kw = dict(SEP_CASES[name])
+    n, height, width = kw.pop("n"), kw.pop("height"), kw.pop("width")
+    cols = synthetic_splats(n, height, width, seed=3, **kw)
+    if name == "straddle":   # centred on the band edge, sigma_y 6 px
+        cols[1][0], cols[4][0], cols[5][0] = 64.0, 1.0 / 36.0, 0.9
+    lo, cnt, gdata, rows, wp, nb = staged(cols, height, width, device)
+    return lo, cnt, gdata, rows, wp, nb
 
 
 @pytest.fixture
@@ -101,3 +174,56 @@ def test_tiled_render_matches_plain_renderer(cuda, footprint):
     for t, p in zip(tiled[:2], plain[:2]):
         np.testing.assert_allclose(t.cpu().numpy(), p.cpu().numpy(),
                                    rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SEP_CASES))
+def test_splat_sep_kernels_match_plain_twins(cuda, case):
+    lo, cnt, gdata, rows, wp, nb = sep_case(case, cuda)
+    if case == "empty_bands":
+        assert (cnt == 0).any() and gdata.shape[0] % nb == 0
+    before = dict(splat_sep.launches)
+    acc = splat_sep.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
+    torch.cuda.synchronize()
+    ref = splat_sep.sep_fwd_plain(lo, cnt, gdata, rows, wp, nb)
+    np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    gen = torch.Generator().manual_seed(5)
+    gband = torch.randn(acc.shape, generator=gen).to(cuda)
+    out = splat_sep.splat_sep_bwd(lo, cnt, gdata, gband, rows, wp, nb)
+    again = splat_sep.splat_sep_bwd(lo, cnt, gdata, gband, rows, wp, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)          # deterministic: no atomics
+    assert splat_sep.launches == {
+        "splat_sep_fwd": before["splat_sep_fwd"] + 1,
+        "splat_sep_bwd": before["splat_sep_bwd"] + 2}
+    ref_b = splat_sep.sep_bwd_plain(lo, cnt, gdata, gband, rows, wp, nb)
+    assert_moments_close(out.cpu(), ref_b.cpu())
+
+
+@pytest.mark.cuda
+def test_accum_render_grads_match_plain_renderer(cuda):
+    """render(mode="accum") values and gradients: tiled (K1/K2 through the
+    autograd Function) against the plain renderer, on the card."""
+    rng = np.random.default_rng(2)
+    n, w, h = 3000, 160, 96
+    arr = dict(
+        means=rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32),
+        scales=rng.uniform(0.01, 0.08, (n, 3)).astype(np.float32),
+        opacities=rng.uniform(0.1, 0.9, (n,)).astype(np.float32),
+        colors=rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    target = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(
+        np.float32)).to(cuda)
+    c = tcam.orbit_cameras(3, w, h, device=cuda)[1]
+    cfg = RenderConfig(width=w, height=h, mode="accum", return_aux=True)
+    outs = {}
+    for impl in ("tiled", "torch"):
+        g = gaussians_from_numpy(arr, device=cuda)
+        leaves = [t.requires_grad_(True) for t in (g.means, g.scales,
+                                                   g.opacities, g.colors)]
+        img, alpha, depth = render(g, c, cfg.replace(impl=impl))
+        (img - target).abs().mean().backward()
+        outs[impl] = [img.detach(), alpha.detach()] + [t.grad for t in leaves]
+    for a, b in zip(outs["tiled"], outs["torch"]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=5e-4, atol=1e-5)

@@ -35,7 +35,9 @@ def imported_roots(path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in port_files()}
     for expected in ("chip_smoke.py", "tpu_gaussians_torch/cli/serve.py",
-                     "tpu_gaussians_torch/kernels/sorted_fwd.py"):
+                     "tpu_gaussians_torch/kernels/sorted_fwd.py",
+                     "tpu_gaussians_torch/cli/fit.py",
+                     "tpu_gaussians_torch/kernels/splat_sep.py"):
         assert expected in names
 
 
@@ -47,7 +49,7 @@ def test_no_jax_import(path):
 
 def test_importing_the_server_loads_no_jax():
     code = ("import sys; import tpu_gaussians_torch.cli.serve, "
-            "tpu_gaussians_torch.cli.render; "
+            "tpu_gaussians_torch.cli.render, tpu_gaussians_torch.cli.fit; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

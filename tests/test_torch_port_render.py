@@ -130,5 +130,6 @@ def test_tiled_path_refuses_grad_and_accum_mode():
     img = tdispatch.render(g, tc, cfg.replace(impl="torch"))
     img.sum().backward()                     # the plain path has autograd
     assert torch.isfinite(g.means.grad).all()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tdispatch.render(tg, tc, cfg.replace(mode="accum"))
+    # accum mode has its kernels (slice 2) but not yet the EWA footprint's
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        tdispatch.render(tg, tc, cfg.replace(mode="accum", footprint="ewa"))

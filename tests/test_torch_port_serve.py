@@ -68,8 +68,13 @@ def test_handler_answers_info_and_render(scene_npz):
             raw[..., :3], svc.render_frame(0.4, 0.25, 2.3, W, H, "sorted"))
         with urllib.request.urlopen(url + "&format=png", timeout=60) as r:
             assert r.headers["Content-Type"] == "image/png"
+        with urllib.request.urlopen(url + "&mode=accum&format=raw",
+                                    timeout=60) as r:
+            np.testing.assert_array_equal(
+                np.frombuffer(r.read(), np.uint8).reshape(H, W, 4)[..., :3],
+                svc.render_frame(0.4, 0.25, 2.3, W, H, "accum"))
         with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(url + "&mode=accum", timeout=60)
+            urllib.request.urlopen(url + "&mode=bogus", timeout=60)
         assert err.value.code == 400
         with urllib.request.urlopen(base + "/", timeout=30) as r:
             assert b"viewer" in r.read()
@@ -146,8 +151,10 @@ def test_render_cli_writes_pngs(scene_npz, tmp_path):
                       "cpu"])
     for i in range(2):
         assert Image.open(tmp_path / f"view_{i:03d}.png").size == (64, 32)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        trender_cli.main([scene_npz, "--mode", "accum", "--device", "cpu"])
+    trender_cli.main([scene_npz, "--out_dir", str(tmp_path / "accum"),
+                      "--width", "64", "--height", "32", "--mode", "accum",
+                      "--device", "cpu"])
+    assert Image.open(tmp_path / "accum" / "view_000.png").size == (64, 32)
     with pytest.raises(NotImplementedError, match="parallel"):
         trender_cli.main([scene_npz, "--shard_bands", "2", "--device",
                           "cpu"])

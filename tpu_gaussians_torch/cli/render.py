@@ -1,5 +1,5 @@
 """Offline renderer CLI: load a fitted npz and render views to PNG, the
-counterpart of `tpu_gaussians.cli.render` (depth-sorted mode).
+counterpart of `tpu_gaussians.cli.render` (both compositing modes).
 
 Usage:
   python -m tpu_gaussians_torch.cli.render fitted.npz --out_dir renders \
@@ -33,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mode", choices=["accum", "sorted"], default="sorted",
                     help="sorted = depth-aware front-to-back "
                          "(viewer default, model_viewer_main.cpp:199); "
-                         "accum comes with the training slice")
+                         "accum = weighted average (the training model)")
     ap.add_argument("--impl", choices=["auto", "torch", "tiled"],
                     default="auto")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
@@ -48,10 +48,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mode == "accum":
-        raise NotImplementedError(
-            "--mode accum is ported in slice 2 (accumulation training); "
-            "use --mode sorted")
     if args.shard_bands > 0:
         raise NotImplementedError(
             "--shard_bands comes with the parallel slice; use 0")

@@ -28,9 +28,11 @@ Device = Union[str, torch.device]
 def resolve_device(device: Device = "cuda") -> torch.device:
     """`device` as a torch.device; raises when CUDA is asked for and absent.
 
-    On CUDA it also pins float32 matmuls to full precision (TF32 off): the
-    projection and the plain compositing's feature contraction must stay
-    true f32 for parity with the JAX package's "highest" precision.
+    On CUDA it also pins float32 matmuls and convolutions to full precision
+    (TF32 off for both; cuDNN convolutions default to TF32): the
+    projection, the plain renderers' feature contractions and the SSIM
+    filter must stay true f32 for parity with the JAX package's "highest"
+    precision.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -39,6 +41,7 @@ def resolve_device(device: Device = "cuda") -> torch.device:
                 f"device {str(device)!r} requested but torch.cuda.is_available()"
                 " is False; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"device must be cuda or cpu, got {str(device)!r}")
     return dev
@@ -136,7 +139,7 @@ class RenderConfig:
 
     mode:
       "accum"  — order-independent weighted-average compositing (the
-                 training path; not in this package yet)
+                 training path)
       "sorted" — global depth sort + front-to-back alpha compositing
     impl:
       "auto"   — "tiled"
@@ -145,7 +148,9 @@ class RenderConfig:
       "tiled"  — tile binner + per-tile compositing kernel, the
                  counterpart of "pallas"
     The sorted_* knobs act on the tiled path only (see ops/sorted.py);
-    the accum_* knobs are kept for schema parity with the JAX package.
+    accum_binned="on" is refused until the binned kernels are ported, and
+    accum_tile_capacity/accum_cull are kept for schema parity with the
+    JAX package.
     """
 
     width: int = 800

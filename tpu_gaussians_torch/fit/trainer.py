@@ -1,0 +1,257 @@
+"""Fitting orchestration, as `tpu_gaussians.fit.trainer` (reference:
+fit_multiview_stub.main, :200-382).
+
+Runs the train step in a plain loop, fires densify/prune on the
+reference's intervals with its optimizer reset (:318-325), logs loss
+(print cadence, loss.txt, metrics.jsonl) and writes the reference's
+artifacts: gaussians_fitted.npz, loss.txt, preview_view0.png (:339-380).
+The schedule is the JAX trainer's: the first step alone (its iter-1 log
+line), then segments between host events, the positional lr decay
+evaluated at each segment's start.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from tpu_gaussians_torch.core import camera as cam
+from tpu_gaussians_torch.core.types import (
+    Camera, Device, RenderConfig, resolve_device, to_device)
+from tpu_gaussians_torch.fit.densify import DensifyConfig, densify_and_prune
+from tpu_gaussians_torch.fit.loss import LossConfig
+from tpu_gaussians_torch.fit.step import (
+    init_state, make_optimizer, make_train_step)
+from tpu_gaussians_torch.io import image as im
+from tpu_gaussians_torch.io.npz import load_gaussians_npz, save_raw_npz
+from tpu_gaussians_torch.models.gaussian_model import (
+    RawParams, activate, init_params, raw_from_gaussians)
+from tpu_gaussians_torch.ops.dispatch import render
+from tpu_gaussians_torch.utils.config import FitConfig, resolve_render_mode
+
+METRIC_KEYS = ("loss", "recon", "silhouette", "depth", "reg", "psnr",
+               "ssim", "n_alive", "grad_norm_mean",
+               "binner_dropped_pairs", "binner_full_tiles",
+               "binner_clipped_rect_pairs")
+MAX_SEG = 256   # longest run of steps between lr-decay updates
+
+
+@dataclass
+class FitResult:
+    raw: RawParams
+    loss_log: List[float]
+    cameras: Camera
+    wall_time_s: float
+
+
+def load_dataset(config: FitConfig, device: Device = "cuda"):
+    """Targets + optional masks/depths (numpy) + cameras (on `device`)."""
+    paths = im.list_target_paths(config.targets_dir)
+    targets = im.load_targets(paths, config.width, config.height)
+    masks = im.load_optional_stem_matched(
+        paths, config.masks_dir or None, config.width, config.height)
+    if masks is None and config.silhouette_weight > 0.0:
+        masks = im.estimate_masks(targets, config.mask_thresh)
+    depths = im.load_optional_stem_matched(
+        paths, config.depth_dir or None, config.width, config.height)
+    if config.camera_npz:
+        cameras = cam.load_cameras_npz(config.camera_npz, len(paths),
+                                       device=device)
+        print("Using camera poses from camera_npz")
+    else:
+        cameras = cam.orbit_cameras(len(paths), config.width, config.height,
+                                    device=device)
+        print("Using fallback orbit cameras (for best quality, provide camera_npz)")
+    return targets, masks, depths, cameras
+
+
+def _refuse_unported(config: FitConfig) -> None:
+    if config.num_view_shards > 1:
+        raise NotImplementedError(
+            "num_view_shards > 1 (views sharded over devices) is ported with "
+            "the parallel slice; use 1")
+    if config.checkpoint_every > 0 or config.resume:
+        raise NotImplementedError(
+            "checkpoint_every > 0 and --resume are ported with the "
+            "checkpoint slice")
+
+
+def fit(
+    config: FitConfig,
+    targets: np.ndarray,
+    cameras: Camera,
+    masks: Optional[np.ndarray] = None,
+    depths: Optional[np.ndarray] = None,
+    out_dir: Optional[Path] = None,
+    device: Device = "cuda",
+    raw0: Optional[RawParams] = None,
+    densify_noise: Optional[Callable[[int], torch.Tensor]] = None,
+) -> FitResult:
+    """Run the fitting loop. targets (V,H,W,3); masks/depths (V,H,W).
+
+    raw0 (the initial parameters) and densify_noise (it -> (C, 3) jitter
+    draws for the densify event at iteration `it`) replace the draws from
+    torch.Generator().manual_seed(config.seed), so that a test can start
+    this package and the JAX one from identical arrays."""
+    _refuse_unported(config)
+    dev = resolve_device(device)
+    v = targets.shape[0]
+    has_masks = masks is not None and config.silhouette_weight > 0.0
+    has_depths = depths is not None and config.depth_weight > 0.0
+    zeros = np.zeros((v, config.height, config.width), np.float32)
+    targets_t = to_device(targets, dev)
+    masks_t = to_device(masks if has_masks else zeros, dev)
+    depths_t = to_device(depths if has_depths else zeros, dev)
+    cameras = Camera(view=cameras.view.to(dev), proj=cameras.proj.to(dev))
+
+    gen = torch.Generator().manual_seed(config.seed)
+    capacity = max(config.max_gaussians, config.num_gaussians)
+    if raw0 is not None:
+        raw = raw0.to(dev)
+        capacity = raw.capacity
+    elif config.init_npz:
+        g0 = load_gaussians_npz(config.init_npz, device=dev)
+        capacity = max(capacity, int((g0.alive_mask() > 0.5).sum()))
+        raw = raw_from_gaussians(g0, capacity)
+        if raw.use_sh != bool(config.use_sh):
+            raise ValueError(
+                "--init_npz SH-ness must match --use_sh "
+                f"(init has sh={raw.use_sh}, flag use_sh={config.use_sh})")
+        print(f"Initialized {int(raw.num_alive())} gaussians from "
+              f"{config.init_npz} (capacity {capacity})")
+    else:
+        raw = init_params(gen, config.num_gaussians, capacity,
+                          config.use_sh, use_quats=config.footprint == "ewa",
+                          sh_degree=config.sh_degree, device=dev)
+    if densify_noise is None:
+        def densify_noise(it):
+            return torch.randn((capacity, 3), generator=gen).to(dev)
+
+    mode = resolve_render_mode(config, capacity)
+    if mode == "sorted":
+        raise NotImplementedError(
+            "sorted-mode training (the fused backward kernel K4) is ported "
+            "in slice 3; train with render_mode='accum'")
+    render_config = RenderConfig(
+        width=config.width, height=config.height, impl=config.impl,
+        footprint=config.footprint, mode=mode,
+        accum_binned=config.accum_binned,
+        sorted_pair_k=config.sorted_pair_k, return_aux=True)
+    loss_config = LossConfig(
+        silhouette_weight=config.silhouette_weight,
+        depth_weight=config.depth_weight, reg_opacity=config.reg_opacity,
+        reg_scale=config.reg_scale, ssim_weight=config.ssim_weight)
+    densify_config = DensifyConfig(
+        densify_interval=config.densify_interval,
+        prune_interval=config.prune_interval,
+        densify_ratio=config.densify_ratio,
+        prune_opacity=config.prune_opacity,
+        clone_metric=config.clone_metric,
+        split_scale_thresh=config.split_scale_thresh,
+        split_shrink=config.split_shrink)
+
+    tx = make_optimizer(config.lr)
+    state = init_state(raw, tx)
+    step_fn = make_train_step(render_config, loss_config, has_masks,
+                              has_depths)
+
+    def means_lr_at(i: int) -> float:
+        if config.means_lr_final >= 1.0 or config.iters <= 0:
+            return 1.0
+        return config.means_lr_final ** (i / config.iters)
+
+    def next_event(it: int) -> int:
+        nxt = config.iters
+        for interval in (config.log_every, config.densify_interval,
+                         config.prune_interval, config.opacity_reset_interval):
+            if interval > 0:
+                nxt = min(nxt, ((it // interval) + 1) * interval)
+        return nxt
+
+    rows = []   # per-step metric rows, fetched from the device at the end
+    t0 = time.perf_counter()
+    last_log_t, last_log_it = t0, 0
+    it, seg_end, mlr = 0, 0, 1.0
+    while it < config.iters:
+        if it == seg_end:   # a new segment: the lr decay is read here
+            seg_end = 1 if it == 0 else min(next_event(it), it + MAX_SEG)
+            mlr = means_lr_at(it)
+        state, metrics = step_fn(state, cameras, targets_t, masks_t,
+                                 depths_t, means_lr_scale=mlr)
+        rows.append(torch.stack([metrics[k].to(torch.float32)
+                                 for k in METRIC_KEYS]))
+        it += 1
+
+        if it == 1 or (config.log_every > 0 and it % config.log_every == 0):
+            lv, n = float(rows[-1][0]), int(rows[-1][METRIC_KEYS.index(
+                "n_alive")])
+            now = time.perf_counter()
+            rate = v * config.width * config.height * max(
+                it - last_log_it, 1) / max(now - last_log_t, 1e-9)
+            last_log_t, last_log_it = now, it
+            print(f"iter {it:4d}  loss={lv:.6f}  N={n}  "
+                  f"{rate / 1e6:.1f} Mpix/s")
+
+        densify_fires = (config.densify_interval > 0
+                         and it % config.densify_interval == 0)
+        prune_fires = (config.prune_interval > 0
+                       and it % config.prune_interval == 0)
+        if densify_fires or prune_fires:
+            new_raw, _ = densify_and_prune(
+                state.raw, densify_noise(it).to(dev), densify_config,
+                densify_ratio=config.densify_ratio if densify_fires else 0.0,
+                grad_norm_accum=state.grad_norm_accum,
+                grad_steps=state.grad_steps)
+            state = init_state(new_raw, tx)   # fresh Adam, :325
+
+        if (config.opacity_reset_interval > 0
+                and it % config.opacity_reset_interval == 0
+                and it < config.iters):
+            # 3DGS opacity reset: clamp op <= reset value (on the logit)
+            # and drop the optimizer state so Adam does not undo it.
+            rv = config.opacity_reset_value
+            logit = math.log(rv) - math.log1p(-rv)
+            state = init_state(state.raw.replace(opacities_raw=torch.clamp(
+                state.raw.opacities_raw.detach(), max=logit)), tx)
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+
+    hist = (torch.stack(rows).cpu().numpy() if rows
+            else np.zeros((0, len(METRIC_KEYS)), np.float32))
+    loss_log = [float(x) for x in hist[:, 0]]
+    if out_dir is not None and config.metrics_jsonl and rows:
+        out_dir = Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with (out_dir / "metrics.jsonl").open("w") as f:
+            for i, row in enumerate(hist):
+                f.write(json.dumps({"step": i + 1, **{
+                    k: float(x) for k, x in zip(METRIC_KEYS, row)}}) + "\n")
+    final = state.raw.with_trainable(
+        {k: t.detach() for k, t in state.raw.trainable().items()})
+    return FitResult(raw=final, loss_log=loss_log, cameras=cameras,
+                     wall_time_s=wall)
+
+
+def write_artifacts(out_dir: Path, result: FitResult,
+                    config: FitConfig) -> None:
+    """Emit the reference's artifacts (fit_multiview_stub.py:339-380)."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    save_raw_npz(out_dir / "gaussians_fitted.npz", result.raw)
+    (out_dir / "loss.txt").write_text(
+        "\n".join(f"{v:.8f}" for v in result.loss_log), encoding="utf-8")
+    cam0 = result.cameras[0] if result.cameras.batched else result.cameras
+    render_config = RenderConfig(width=config.width, height=config.height,
+                                 impl=config.impl, footprint=config.footprint)
+    with torch.no_grad():
+        pred0 = render(activate(result.raw), cam0, render_config)
+    im.save_image_png(out_dir / "preview_view0.png", pred0.cpu().numpy())

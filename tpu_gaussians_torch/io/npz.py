@@ -17,6 +17,7 @@ from typing import Union
 import numpy as np
 
 from tpu_gaussians_torch.core.types import Device, Gaussians, make_gaussians
+from tpu_gaussians_torch.models.gaussian_model import RawParams, activate
 from tpu_gaussians_torch.ops.sh import SH_C0
 
 
@@ -43,6 +44,11 @@ def save_gaussians_npz(path: Union[str, Path], g: Gaussians) -> None:
         arrays["quaternions"] = q / (np.linalg.norm(q, axis=1, keepdims=True)
                                      + 1e-12)
     np.savez(Path(path), **arrays)
+
+
+def save_raw_npz(path: Union[str, Path], raw: RawParams) -> None:
+    """Write a RawParams model (activated, alive rows only)."""
+    save_gaussians_npz(path, activate(raw))
 
 
 def load_gaussians_npz(path: Union[str, Path],

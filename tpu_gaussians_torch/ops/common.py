@@ -8,7 +8,9 @@ sigma (a = 1/sigma_x^2, b = 0, c = 1/sigma_y^2); "ewa" the quaternion +
 scale covariance projected by the EWA Jacobian (ops/ewa.py).
 
 Feature layout: feat = [r, g, b, 1, z_abs], so one contraction through the
-weights gives color, weight sum and the depth numerator together.
+weights gives color, weight sum and the depth numerator together: the
+accumulation mode's acc[p, :] = sum_i w_ip feat_i has columns
+[R, G, B, Wsum, D].
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from tpu_gaussians_torch.ops.projection import project
 from tpu_gaussians_torch.ops.sh import eval_colors
 
 FEAT_DIM = 5  # [r, g, b, 1, z]
+COL_R, COL_G, COL_B, COL_W, COL_D = range(FEAT_DIM)
 
 
 class SplatInputs(NamedTuple):
@@ -68,6 +71,23 @@ def prepare_splats(g: Gaussians, view: torch.Tensor, proj: torch.Tensor,
         sigma_x=conic.sigma_x, sigma_y=conic.sigma_y,
         op_eff=op_eff, feats=feats,
     )
+
+
+def resolve_accum(acc: torch.Tensor, background: torch.Tensor, height: int,
+                  width: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """O(HW) resolve of the weighted-average mode (torch_renderer.py:
+    192-203): acc (H*W, 5) -> image clip((bg + RGB) / (1 + Wsum), 0, 1),
+    alpha clip(Wsum / (1 + Wsum), 0, 1), depth max(D / (Wsum + 1e-6), 0)."""
+    rgb = acc[:, COL_R:COL_B + 1].reshape(height, width, 3)
+    wsum = acc[:, COL_W].reshape(height, width)
+    d = acc[:, COL_D].reshape(height, width)
+    denom = 1.0 + wsum
+    image = torch.clamp((background[None, None, :] + rgb) / denom[..., None],
+                        0.0, 1.0)
+    alpha = torch.clamp(wsum / denom, 0.0, 1.0)
+    depth = torch.clamp(d / (wsum + 1e-6), min=0.0)
+    return image, alpha, depth
 
 
 def pixel_grid(height: int, width: int,

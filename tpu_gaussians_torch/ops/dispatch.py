@@ -1,10 +1,12 @@
 """Public render entry point with implementation dispatch, as
-`tpu_gaussians.ops.dispatch`: RenderConfig.impl "tiled" (binner + per-tile
-compositing kernel; "auto" picks it) or "torch" (the whole-frame plain
-renderer, exact). The two agree to float tolerance.
+`tpu_gaussians.ops.dispatch`: RenderConfig.impl "tiled" (the kernels;
+"auto" picks it) or "torch" (the whole-frame plain renderer, exact). The
+two agree to float tolerance.
 
-Only the depth-sorted mode is in this package so far; the accumulation
-mode (the training path) comes with the training slice.
+  accum  tiled: axis footprint -> ops/splat.splat_accumulate (separable
+         band kernels K1/K2, differentiable); torch: plain_renderer.accumulate
+  sorted tiled: binner + per-tile compositing kernel K3 (forward only);
+         torch: plain_renderer.composite_sorted
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ from tpu_gaussians_torch.core.types import (
 from tpu_gaussians_torch.ops import plain_renderer
 from tpu_gaussians_torch.ops import sorted as tiled_sorted
 from tpu_gaussians_torch.ops.binning import EXIT_T
-from tpu_gaussians_torch.ops.common import prepare_splats
+from tpu_gaussians_torch.ops.common import prepare_splats, resolve_accum
 from tpu_gaussians_torch.ops.projection import camera_z
+from tpu_gaussians_torch.ops.splat import splat_accumulate
 
 
 def _resolve_impl(impl: str) -> str:
@@ -47,13 +50,38 @@ def zero_overflow_stats(device) -> Dict[str, torch.Tensor]:
             "clipped_rect_pairs": zero}
 
 
-def render_accum(g: Gaussians, view: torch.Tensor, proj: torch.Tensor,
-                 config: RenderConfig, row0=None, return_stats: bool = False):
-    """Weighted-average mode: not in this package yet."""
-    raise NotImplementedError(
-        "mode='accum' (the weighted-average training path, kernels K1/K2) "
-        "is ported in slice 2, the accumulation training slice; use "
-        "mode='sorted'")
+def render_accum(
+    g: Gaussians, view: torch.Tensor, proj: torch.Tensor,
+    config: RenderConfig, row0: Union[torch.Tensor, float, None] = None,
+    return_stats: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Weighted-average mode -> (image, alpha, depth) [+ overflow stats,
+    zeros: both accumulation paths are exact]. Differentiable.
+
+    row0: render the row window [row0, row0 + config.height) of the full
+    frame the camera was built for (config.proj_height); see render_sorted.
+    """
+    s = prepare_splats(g, view, proj, config.width, config.full_height(),
+                       footprint=config.footprint)
+    if row0 is not None:
+        s = s._replace(py=s.py - row0)
+    if config.accum_cull != "exact" or config.accum_tile_capacity:
+        _warn_ignored("accum_cull/accum_tile_capacity",
+                      f"{_resolve_impl(config.impl)} accum (dense)")
+    if _resolve_impl(config.impl) == "tiled":
+        if config.footprint != "axis" or config.accum_binned == "on":
+            raise NotImplementedError(
+                "accumulation with the EWA footprint (TPU kernels K5/K6, "
+                "binned K8) or accum_binned='on' (binned K7) is ported in "
+                "slice 4; use footprint='axis' with accum_binned auto/off, "
+                "or impl='torch'")
+        acc = splat_accumulate(s, config.height, config.width, axis=True)
+    else:
+        acc = plain_renderer.accumulate(s, config.height, config.width,
+                                        chunk=config.chunk_size)
+    out = resolve_accum(acc, config.background_tensor(g.device),
+                        config.height, config.width)
+    return out + (zero_overflow_stats(g.device),) if return_stats else out
 
 
 def render_sorted(

@@ -58,6 +58,16 @@ def _eval_sh3dgs(sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def sh_bands(degree: int) -> int:
+    """Coefficient rows for an SH degree: 1 -> 4 (reference convention),
+    2 -> 9, 3 -> 16 (3DGS convention)."""
+    if degree == 1:
+        return 4
+    if degree in (2, 3):
+        return (degree + 1) ** 2
+    raise ValueError(f"sh degree must be 1, 2 or 3, got {degree}")
+
+
 def _unit(d: torch.Tensor) -> torch.Tensor:
     return d / (torch.linalg.norm(d, dim=1, keepdim=True) + 1e-8)
 
