@@ -26,7 +26,8 @@ Phases, each of which fails the run by raising:
               path's inputs: image and alpha within rtol 1e-4 / atol 1e-5,
               and within exit_t on tiles whose whole-tile early-exit
               decision differs; and a small scene through render(impl=
-              "tiled") against the plain renderer in both modes
+              "tiled") against the plain renderer in both modes and both
+              footprints (EWA accum through K5)
   7. fit      cli.fit.main on cuda with the flagship recipe (example scene,
               150 iterations, --use_sh, 800 gaussians, 128x128, capacity
               3000): loss.txt has 150 lines and its last loss is under half
@@ -38,17 +39,34 @@ Phases, each of which fails the run by raising:
               orbit views at 512x512 (R = 32, 16 bands), random targets from
               --seed: 10 train steps timed with CUDA events, a profile, and
               K1/K2 against their twins on those staged inputs
-  9. report   one `kernels` JSON line, the nvidia-smi line, and last
+  9. fit sorted  cli.fit.main with the same recipe plus --max_gaussians
+              4096 --footprint ewa (render_mode auto -> sorted): the checks
+              of phase 7, the pair-budget line printed, K3 (sorted_fwd) and
+              K4 (sorted_bwd) launched 6 times per step and K5
+              (splat_v2_fwd) for the preview; a profile of its train steps;
+              K5 against its twin on the fitted model (the preview's
+              inputs), and K3 and K4 against theirs on its EWA tile lists
+ 10. scale sorted  100,000 alive EWA gaussians (phase 8's scene, seeded
+              quaternions), 4 views at 512x512, sorted with the measured
+              pair budget: 10 train steps timed, a profile; K3, then K4 on
+              K3's outputs, against their twins on the binner's lists, for
+              both footprints; sorted-render gradients against the plain
+              renderer on a small scene; K5 against its twin at 8,192 EWA
+              gaussians on 512x512
+ 11. report   one `kernels` JSON line, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
-K1 is held to rtol 1e-5 / atol 1e-5; K2 to rtol 2e-4 and atol 2e-5 times
-the largest magnitude of its output column (its moments are sums of signed
-terms that cancel). Kernel and twin times are CUDA-event medians of 20
-after warm-up. The launch counters are set to 0 just before each main path
-(phases 4-5 for serving, the cli.fit.main call of phase 7 for training)
-and read just after: every kernel of the path must have launched there.
-It exits non-zero, printing no result, without a CUDA device or outside a
-checkout.
+K1 and K5 are held to rtol 1e-5 / atol 1e-5; K2 to rtol 2e-4 and atol 2e-5
+times the largest magnitude of its output column (its moments are sums of
+signed terms that cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest
+magnitude of its output column (the JAX suite's tolerance for the sorted
+backward: ctg - P_i cancels and is divided by 1 - a), and bit-identical
+across two launches, as K2. Kernel times are CUDA-event medians of 20 after
+warm-up (twins: of 5). The launch counters are set to 0 just before each
+main path (phases 4-5 for serving, the cli.fit.main calls of phases 7 and
+9 for training) and read just after: every kernel of the path must have
+launched there. It exits non-zero, printing no result, without a CUDA
+device or outside a checkout.
 """
 
 from __future__ import annotations
@@ -80,9 +98,20 @@ SORTED_FLOPS_PER_EVAL = 16
 # products). The R + Wp exps per pair (a few percent) are not counted.
 SEP_FWD_FLOPS_PER_PIXEL = 2 * 5
 SEP_BWD_FLOPS_PER_PIXEL = 2 * 2 * 5
+# f32 operations per composited (slot, pixel) in K4's pixel loop
+# (csrc/sorted_bwd.cu): dy; the exponent and alpha (11 for the general
+# conic, 5 for the factorised axis form); cutoff and clamp; T*a; f.g8 (8
+# multiply-adds); the prefix P; the pass test; g_a and g_e (6); three
+# moment sums (6); g_feat (8 multiply-adds); T's update. The exp is not
+# counted.
+SORTED_BWD_FLOPS_PER_EVAL = {"ewa": 66, "axis": 60}
+# f32 operations per (gaussian, pixel) pair in K5 (csrc/splat_v2_fwd.cu):
+# dx, dy, the Horner exponent (7) and 8 multiply-adds; the exp not counted.
+V2_FWD_FLOPS_PER_PAIR = 25
 FIT_ARGS = ["--targets_dir", "assets/example_scene", "--camera_npz",
             "assets/example_scene/cameras.npz", "--iters", "150", "--use_sh",
             "--num_gaussians", "800"]
+SORTED_FIT_ARGS = ["--max_gaussians", "4096", "--footprint", "ewa"]
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -182,30 +211,24 @@ def serve_phase(svc, width: int, height: int, pose) -> dict:
     return out
 
 
-def kernel_case(name, g, width, height, knobs, reps):
-    """Kernel vs plain twin on one frame's compositing inputs."""
+def sorted_fwd_check(name, gdense, cnt, tiles_x, tiles_y, height, width,
+                     axis, exit_t):
+    """K3 against its plain twin on one view's tile lists: image and alpha
+    within rtol 1e-4 / atol 1e-5, and within exit_t on tiles whose
+    whole-tile early-exit decision differs. Raises on a disagreement;
+    returns K3's (acc, chunks_done), the largest error and the count of
+    tiles with another exit."""
     import torch
 
-    from tpu_gaussians_torch.core import camera as cam
-    from tpu_gaussians_torch.core.types import RenderConfig
     from tpu_gaussians_torch.kernels import sorted_fwd
     from tpu_gaussians_torch.ops import sorted as tiled
-    from tpu_gaussians_torch.ops.binning import EXIT_T, NBS, TPS
-    from tpu_gaussians_torch.ops.common import prepare_splats
-    from tpu_gaussians_torch.ops.projection import camera_z
+    from tpu_gaussians_torch.ops.binning import TPS
 
-    cfg = RenderConfig(width=width, height=height, mode="sorted", **knobs)
-    exit_t = cfg.sorted_exit_t or EXIT_T
-    c = cam.orbit_cameras(8, width, height, device="cuda")[1]
     with torch.no_grad():
-        s = prepare_splats(g, c.view, c.proj, width, height)
-        gdense, cnt, tiles_x, tiles_y, stats = tiled.tile_lists(
-            s, camera_z(g.means, c.view), height, width,
-            cfg.sorted_band_capacity, cfg.sorted_pair_k)
         acc_k, chunks_k = sorted_fwd.sorted_tiles(gdense, cnt, tiles_x,
-                                                  axis=True, exit_t=exit_t)
+                                                  axis=axis, exit_t=exit_t)
         acc_p, chunks_p = sorted_fwd.sorted_tiles_plain(
-            gdense, cnt, tiles_x, axis=True, exit_t=exit_t)
+            gdense, cnt, tiles_x, axis=axis, exit_t=exit_t)
         torch.cuda.synchronize()
         bg = torch.zeros(3, device="cuda")
         img_k, al_k, _ = tiled.resolve_sorted(acc_k, bg, tiles_y, tiles_x,
@@ -228,9 +251,33 @@ def kernel_case(name, g, width, height, knobs, reps):
         max_err = max(float(err_img.max()), float(err_al.max()))
         tiles_differ = int((chunks_k != chunks_p).sum())
         check(ok_same and ok_diff,
-              f"{name}: kernel and plain twin disagree (max abs err "
+              f"{name}: K3 and its plain twin disagree (max abs err "
               f"{max_err}, {tiles_differ} tiles with another exit)")
+    return acc_k, chunks_k, max_err, tiles_differ
 
+
+def kernel_case(name, g, width, height, knobs, reps):
+    """Kernel vs plain twin on one frame's compositing inputs."""
+    import torch
+
+    from tpu_gaussians_torch.core import camera as cam
+    from tpu_gaussians_torch.core.types import RenderConfig
+    from tpu_gaussians_torch.kernels import sorted_fwd
+    from tpu_gaussians_torch.ops import sorted as tiled
+    from tpu_gaussians_torch.ops.binning import EXIT_T, NBS, TPS
+    from tpu_gaussians_torch.ops.common import prepare_splats
+    from tpu_gaussians_torch.ops.projection import camera_z
+
+    cfg = RenderConfig(width=width, height=height, mode="sorted", **knobs)
+    exit_t = cfg.sorted_exit_t or EXIT_T
+    c = cam.orbit_cameras(8, width, height, device="cuda")[1]
+    with torch.no_grad():
+        s = prepare_splats(g, c.view, c.proj, width, height)
+        gdense, cnt, tiles_x, tiles_y, stats = tiled.tile_lists(
+            s, camera_z(g.means, c.view), height, width,
+            cfg.sorted_band_capacity, cfg.sorted_pair_k)
+        _, chunks_k, max_err, tiles_differ = sorted_fwd_check(
+            name, gdense, cnt, tiles_x, tiles_y, height, width, True, exit_t)
         k_ms = time_ms(lambda: sorted_fwd.sorted_tiles(
             gdense, cnt, tiles_x, axis=True, exit_t=exit_t), reps)
         p_ms = time_ms(lambda: sorted_fwd.sorted_tiles_plain(
@@ -304,34 +351,90 @@ def profile_frames(svc, width: int, height: int, frames: int = 10) -> dict:
     return {"n": svc.n, "preset": svc.preset, **out}
 
 
-def small_reference_check() -> None:
-    """render(impl="tiled") with the kernels against the whole-frame plain
-    renderer on a small scene, in both compositing modes."""
-    import torch
+def small_scene(device: str = "cuda"):
+    """2,000 gaussians four times phase 3's size, with seeded quaternions."""
+    import numpy as np
 
-    from tpu_gaussians_torch.core import camera as cam
-    from tpu_gaussians_torch.core.types import (
-        RenderConfig, gaussians_from_numpy)
-    from tpu_gaussians_torch.ops.dispatch import render
+    from tpu_gaussians_torch.core.types import gaussians_from_numpy
 
     arr = scene_arrays(2000, 7)
     arr["scales"] *= 4.0
-    g = gaussians_from_numpy(arr, device="cuda")
+    arr["quats"] = np.random.default_rng(8).normal(
+        size=(2000, 4)).astype(np.float32)
+    return gaussians_from_numpy(arr, device=device)
+
+
+def small_reference_check() -> None:
+    """render(impl="tiled") with the kernels against the whole-frame plain
+    renderer on a small scene, in both compositing modes and footprints."""
+    import torch
+
+    from tpu_gaussians_torch.core import camera as cam
+    from tpu_gaussians_torch.core.types import RenderConfig
+    from tpu_gaussians_torch.ops.dispatch import render
+
+    g = small_scene()
     c = cam.orbit_cameras(2, 256, 64, device="cuda")
-    for mode, rtol in (("sorted", 1e-4), ("accum", 1e-5)):
-        cfg = RenderConfig(width=256, height=64, mode=mode, return_aux=True)
-        with torch.no_grad():
-            tiled = render(g, c, cfg.replace(impl="tiled"))
-            plain = render(g, c, cfg.replace(impl="torch"))
-        for t, p in zip(tiled[:2], plain[:2]):
-            check(t.shape == p.shape and bool(torch.isfinite(t).all()),
-                  f"small {mode} render: bad shape or non-finite values")
-            check(bool(torch.allclose(t, p, rtol=rtol, atol=1e-5)),
-                  f"small {mode} render: tiled and plain renderers disagree "
-                  f"(max abs err {float((t - p).abs().max())})")
-        log(f"small scene, {mode}: render(impl='tiled') == render(impl="
-            f"'torch') (max abs err "
-            f"{float((tiled[0] - plain[0]).abs().max())})")
+    for footprint in ("axis", "ewa"):
+        for mode, rtol in (("sorted", 1e-4), ("accum", 1e-5)):
+            cfg = RenderConfig(width=256, height=64, mode=mode,
+                               footprint=footprint, return_aux=True)
+            with torch.no_grad():
+                tiled = render(g, c, cfg.replace(impl="tiled"))
+                plain = render(g, c, cfg.replace(impl="torch"))
+            name = f"small {footprint} {mode} render"
+            for t, p in zip(tiled[:2], plain[:2]):
+                check(t.shape == p.shape and bool(torch.isfinite(t).all()),
+                      f"{name}: bad shape or non-finite values")
+                check(bool(torch.allclose(t, p, rtol=rtol, atol=1e-5)),
+                      f"{name}: tiled and plain renderers disagree (max "
+                      f"abs err {float((t - p).abs().max())})")
+            log(f"small scene, {footprint} {mode}: render(impl='tiled') == "
+                f"render(impl='torch') (max abs err "
+                f"{float((tiled[0] - plain[0]).abs().max())})")
+
+
+def small_grad_check() -> dict:
+    """Gradients of render(mode="sorted") through K3/K4 against the plain
+    renderer's autograd on the small scene, both footprints, at rtol 2e-3
+    and atol 2e-4 times each parameter's largest gradient."""
+    import torch
+
+    from tpu_gaussians_torch.core import camera as cam
+    from tpu_gaussians_torch.core.types import RenderConfig
+    from tpu_gaussians_torch.ops.dispatch import render
+
+    c = cam.orbit_cameras(3, 256, 64, device="cuda")[1]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    target = torch.rand((64, 256, 3), generator=gen, device="cuda")
+    errs = {}
+    for footprint in ("axis", "ewa"):
+        cfg = RenderConfig(width=256, height=64, mode="sorted",
+                           footprint=footprint, return_aux=True)
+        grads = {}
+        for impl in ("tiled", "torch"):
+            g = small_scene()
+            leaves = {k: getattr(g, k).requires_grad_(True) for k in (
+                "means", "scales", "opacities", "colors", "quats")}
+            img, alpha, _ = render(g, c, cfg.replace(impl=impl))
+            ((img - target).abs().mean() + alpha.mean()).backward()
+            grads[impl] = {k: t.grad for k, t in leaves.items()
+                           if t.grad is not None}
+        check(set(grads["tiled"]) == set(grads["torch"]),
+              f"sorted {footprint} grads: different leaves reached")
+        for k, want in grads["torch"].items():
+            got = grads["tiled"][k]
+            scale = float(want.abs().max())
+            check(bool(torch.isfinite(got).all()) and bool(torch.allclose(
+                got, want, rtol=2e-3, atol=2e-4 * scale)),
+                f"sorted {footprint} grad of {k}: tiled and plain disagree "
+                f"(max abs err {float((got - want).abs().max())}, scale "
+                f"{scale})")
+            errs[f"{footprint}_{k}"] = float((got - want).abs().max()) / max(
+                scale, 1e-30)
+    log("small scene, sorted gradients: tiled == plain, max err / scale "
+        + json.dumps(errs))
+    return errs
 
 
 def staged_sep(g, view, proj, width: int, height: int):
@@ -423,46 +526,68 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
     return case
 
 
-def fit_phase(tmp: Path) -> dict:
-    """The training main path: cli.fit.main on the card with the flagship
-    recipe, launch counters from 0 just before it and read just after."""
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from tpu_gaussians_torch.kernels import (
+        sorted_bwd, sorted_fwd, splat_sep, splat_v2)
+
+    for k in splat_sep.launches:
+        splat_sep.launches[k] = 0
+    sorted_fwd.launches = sorted_bwd.launches = splat_v2.launches = 0
+
+
+def read_launches() -> dict:
+    from tpu_gaussians_torch.kernels import (
+        sorted_bwd, sorted_fwd, splat_sep, splat_v2)
+
+    return {"sorted_fwd": sorted_fwd.launches,
+            "sorted_bwd": sorted_bwd.launches, **splat_sep.launches,
+            "splat_v2_fwd": splat_v2.launches}
+
+
+def fit_phase(tmp: Path, name: str, extra_args, min_launches: dict,
+              expect_line: str = "") -> dict:
+    """A training main path: cli.fit.main on the card with the flagship
+    recipe plus `extra_args`, launch counters from 0 just before it and
+    read just after; each kernel of `min_launches` must have launched at
+    least that often, and `expect_line` must be printed."""
     import numpy as np
 
     from tpu_gaussians_torch.cli import fit as fit_cli
-    from tpu_gaussians_torch.kernels import sorted_fwd, splat_sep
 
-    out_dir = tmp / "fit"
+    out_dir = tmp / name
     argv = [str(ROOT / a) if a.startswith("assets") else a
-            for a in FIT_ARGS] + ["--out_dir", str(out_dir), "--device",
-                                  "cuda"]
-    for k in splat_sep.launches:
-        splat_sep.launches[k] = 0
-    sorted_fwd.launches = 0
+            for a in FIT_ARGS] + list(extra_args) + [
+                "--out_dir", str(out_dir), "--device", "cuda"]
+    reset_launches()
     printed = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         fit_cli.main(argv)
     main_s = time.perf_counter() - t0
-    log(printed.getvalue().rstrip())
-    launches = {**splat_sep.launches, "sorted_fwd": sorted_fwd.launches}
-    log(f"fit main path: kernel launches {launches}")
+    launches = read_launches()
+    text = printed.getvalue()
+    log(text.rstrip())
+    log(f"{name} main path: kernel launches {launches}")
 
     losses = [float(x) for x in
               (out_dir / "loss.txt").read_text().splitlines()]
     n_alive = [json.loads(line)["n_alive"] for line in
                (out_dir / "metrics.jsonl").read_text().splitlines()]
-    check(len(losses) == 150, f"loss.txt has {len(losses)} lines")
+    check(len(losses) == 150, f"{name}: loss.txt has {len(losses)} lines")
     check(bool(np.isfinite(losses).all()) and losses[-1] < 0.5 * losses[0],
-          f"loss went {losses[0]} -> {losses[-1]}: not under half")
-    check(n_alive[80] > n_alive[79],
-          f"N did not grow at iteration 80 ({n_alive[79]} -> {n_alive[80]})")
-    for name in ("gaussians_fitted.npz", "loss.txt", "metrics.jsonl",
-                 "preview_view0.png"):
-        check((out_dir / name).stat().st_size > 0, f"fit wrote no {name}")
-    for k in ("splat_sep_fwd", "splat_sep_bwd"):
-        check(launches[k] >= 150, f"{k} launched {launches[k]} times in a "
-              "150-step fit")
-    loop_s = float(printed.getvalue().split("Done in ")[1].split("s.")[0])
+          f"{name}: loss went {losses[0]} -> {losses[-1]}: not under half")
+    check(n_alive[80] > n_alive[79], f"{name}: N did not grow at iteration "
+          f"80 ({n_alive[79]} -> {n_alive[80]})")
+    for artifact in ("gaussians_fitted.npz", "loss.txt", "metrics.jsonl",
+                     "preview_view0.png"):
+        check((out_dir / artifact).stat().st_size > 0,
+              f"{name} wrote no {artifact}")
+    for k, least in min_launches.items():
+        check(launches[k] >= least, f"{name}: {k} launched {launches[k]} "
+              f"times in a 150-step fit (at least {least} expected)")
+    check(expect_line in text, f"{name} did not print {expect_line!r}")
+    loop_s = float(text.split("Done in ")[1].split("s.")[0])
     views, pix = 6, 128 * 128
     out = {"iters": 150, "main_wall_s": main_s, "fit_loop_wall_s": loop_s,
            "steps_per_s": 150 / loop_s,
@@ -470,24 +595,27 @@ def fit_phase(tmp: Path) -> dict:
            "loss_first": losses[0], "loss_last": losses[-1],
            "n_first": n_alive[0], "n_last": n_alive[-1],
            "launches": launches}
-    log("fit " + json.dumps(out))
+    if "sorted pair budget k=" in text:
+        out["pair_k"] = int(text.split("sorted pair budget k=")[1].split()[0])
+    log(f"{name} " + json.dumps(out))
     return out
 
 
-def train_steps(raw, cameras, targets, masks, steps: int, profile: int):
-    """`steps` train steps timed with CUDA events (median and mean ms),
+def train_steps(raw, cameras, targets, masks, steps: int, profile: int,
+                render_config):
+    """`steps` train steps rendering with `render_config` (its width and
+    height are the targets'), timed with CUDA events (median and mean ms),
     then a profile of `profile` more."""
     import torch
 
-    from tpu_gaussians_torch.core.types import RenderConfig
     from tpu_gaussians_torch.fit.loss import LossConfig
     from tpu_gaussians_torch.fit.step import (
         init_state, make_optimizer, make_train_step)
 
     height, width = targets.shape[1:3]
     state = init_state(raw, make_optimizer(0.02))
-    step = make_train_step(RenderConfig(width=width, height=height,
-                                        mode="accum", return_aux=True),
+    step = make_train_step(render_config.replace(width=width, height=height,
+                                                 return_aux=True),
                            LossConfig(), masks is not None, False)
     zeros = torch.zeros_like(targets[..., 0])
     m = zeros if masks is None else masks
@@ -507,10 +635,128 @@ def train_steps(raw, cameras, targets, masks, steps: int, profile: int):
         times.append(start.elapsed_time(end))
     prof = profile_calls(one, profile)
     times.sort()
-    return {"steps": steps, "step_ms_median": times[len(times) // 2],
+    return {"steps": steps, "mode": render_config.mode,
+            "footprint": render_config.footprint,
+            "step_ms_median": times[len(times) // 2],
             "step_ms_mean": sum(times) / steps,
             "views": cameras.num_views(), "width": width, "height": height,
             "capacity": raw.capacity, "profile": prof}, state
+
+
+def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
+                    footprint: str, pair_k: int, seed: int,
+                    reps: int = 20) -> dict:
+    """K4 against its plain twin on one view's compositing inputs (the
+    binner's lists, K3's acc and chunks_done, a seeded N(0,1) cotangent):
+    error, determinism, CUDA-event times and bound. K3 is held against its
+    twin on the same lists first. Raises on a disagreement."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import sorted_bwd, sorted_fwd
+    from tpu_gaussians_torch.ops import sorted as tiled
+    from tpu_gaussians_torch.ops.binning import EXIT_T, NBS, TPS
+    from tpu_gaussians_torch.ops.common import prepare_splats
+    from tpu_gaussians_torch.ops.projection import camera_z
+
+    axis = footprint == "axis"
+    with torch.no_grad():
+        s = prepare_splats(g, view, proj, width, height, footprint=footprint)
+        gdense, cnt, tiles_x, tiles_y, stats = tiled.tile_lists(
+            s, camera_z(g.means, view), height, width, 0, pair_k)
+        acc, chunks, k3_err, k3_differ = sorted_fwd_check(
+            name, gdense, cnt, tiles_x, tiles_y, height, width, axis, EXIT_T)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        g8 = torch.randn(acc.shape, generator=gen, device="cuda")
+        args = (gdense, cnt, acc, g8, chunks, tiles_x, axis)
+        out = sorted_bwd.sorted_bwd(*args)
+        again = sorted_bwd.sorted_bwd(*args)
+        ref = sorted_bwd.sorted_bwd_plain(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite K4 rows")
+        check(bool(torch.equal(out, again)), f"{name}: K4 not deterministic")
+        scale = ref.abs().amax(dim=0)
+        bad = (out - ref).abs() > 2e-3 * ref.abs() + 2e-4 * scale
+        err = float((out - ref).abs().max())
+        check(not bool(bad.any()),
+              f"{name}: K4 disagrees with its twin in {int(bad.sum())} "
+              f"values (max abs err {err})")
+        k_ms = time_ms(lambda: sorted_bwd.sorted_bwd(*args), reps)
+        p_ms = time_ms(lambda: sorted_bwd.sorted_bwd_plain(*args), 5, 1)
+    # The least the card could take: the (slot, pixel) pairs the tiles
+    # composited at K4's operations each, against the composited slots,
+    # acc, g8, cnt and chunks_done read once and the rows written once.
+    n_tiles = cnt.shape[0]
+    slots = int(torch.minimum(cnt, chunks * NBS).sum())
+    nbytes = (slots * 64 + 2 * 8 * 4 * n_tiles * TPS + 2 * 4 * n_tiles
+              + gdense.numel() * 4)
+    ops_ms = 1e3 * SORTED_BWD_FLOPS_PER_EVAL[footprint] * slots * TPS / (
+        F32_FLOPS_PER_S)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    case = {"case": name, "footprint": footprint, "pair_k": pair_k,
+            "tiles": n_tiles, "cap": gdense.shape[0] // n_tiles,
+            "slots_listed": int(cnt.sum()), "slots_composited": slots,
+            "max_abs_err": err, "max_abs_ref": float(scale.max()),
+            "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "sorted_fwd_max_abs_err": k3_err,
+            "sorted_fwd_tiles_exit_differs": k3_differ,
+            "stats": {k: int(v) for k, v in stats.items()}}
+    log("sorted bwd case " + json.dumps(case))
+    return case
+
+
+def v2_case(name: str, g, view, proj, width: int, height: int,
+            reps: int = 20) -> dict:
+    """K5 against its plain twin on one view's EWA accumulation inputs,
+    staged by the render path's own ops/splat staging: error, CUDA-event
+    times and bound. Raises on a disagreement."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import splat_v2
+    from tpu_gaussians_torch.ops import splat
+    from tpu_gaussians_torch.ops.common import prepare_splats
+
+    with torch.no_grad():
+        s = prepare_splats(g, view, proj, width, height, footprint="ewa")
+        lo, cnt, gdata, nb, hw_pad = splat._v2_prep(splat.y_sorted(s),
+                                                    height, width)
+        args = (lo, cnt, gdata, hw_pad, width, nb)
+        acc = splat_v2.splat_v2_fwd(*args)
+        ref = splat_v2.v2_fwd_plain(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(acc).all()), f"{name}: non-finite K5 sums")
+        err = float((acc - ref).abs().max())
+        check(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
+              f"{name}: K5 disagrees with its twin (max abs err {err})")
+        k_ms = time_ms(lambda: splat_v2.splat_v2_fwd(*args), reps)
+        p_ms = time_ms(lambda: splat_v2.v2_fwd_plain(*args), 5, 1)
+    # The least the card could take: the (gaussian, pixel) pairs that need
+    # evaluating -- each band's live rows (op > 0) within its block range,
+    # times the band's pixels inside the frame -- at K5's operations each,
+    # against gdata, lo and cnt read once and the (8, hw_pad) sums written
+    # once. pairs_evaluated is what the kernel runs: every row of the range
+    # (padding and dead capacity rows included) on every pixel of the band.
+    pairs = int(cnt.to(torch.int64).sum()) * nb * splat_v2.TP2
+    live = (gdata[:, 5] > 0).to(torch.int64).reshape(-1, nb).sum(dim=1)
+    live_csum = torch.nn.functional.pad(live.cumsum(0), (1, 0))
+    lo64, cnt64 = lo.to(torch.int64), cnt.to(torch.int64)
+    band_px = torch.clamp(width * height - splat_v2.TP2 * torch.arange(
+        lo.shape[0], device=lo.device), 0, splat_v2.TP2)
+    alive_pairs = int(((live_csum[lo64 + cnt64] - live_csum[lo64])
+                       * band_px).sum())
+    ops_ms = 1e3 * V2_FWD_FLOPS_PER_PAIR * alive_pairs / F32_FLOPS_PER_S
+    bytes_ms = 1e3 * (gdata.numel() * 4 + 2 * lo.numel() * 4
+                      + 8 * hw_pad * 4) / HBM_BYTES_PER_S
+    case = {"case": name, "n_pad": gdata.shape[0], "nb": nb,
+            "width": width, "height": height, "bands": lo.shape[0],
+            "pairs_evaluated": pairs, "alive_pairs": alive_pairs,
+            "alive": int((gdata[:, 5] > 0).sum()), "max_abs_err": err,
+            "max_abs_ref": float(ref.abs().max()),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    log("v2 case " + json.dumps(case))
+    return case
 
 
 def main() -> int:
@@ -532,7 +778,7 @@ def main() -> int:
         INTERACTIVE_KNOBS, RenderService, run_loop)
     from tpu_gaussians_torch.core import camera as cam
     from tpu_gaussians_torch.core.types import (
-        Camera, make_gaussians, resolve_device, to_device)
+        Camera, RenderConfig, make_gaussians, resolve_device, to_device)
     from tpu_gaussians_torch.fit.trainer import load_dataset
     from tpu_gaussians_torch.io.npz import load_gaussians_npz, save_gaussians_npz
     from tpu_gaussians_torch.kernels import build, sorted_fwd
@@ -576,12 +822,12 @@ def main() -> int:
     svc = RenderService(str(npz), impl="auto", fovy=60.0,
                         preset="interactive", device="cuda")
     pose = (0.5, 0.2, 2.5)
-    sorted_fwd.launches = 0
+    reset_launches()
     svc.frames = 0
     served = serve_phase(svc, width, height, pose)
     loop = run_loop(svc, frames=50, width=width, height=height,
                     mode="sorted", fmt="jpg")
-    launches = {"sorted_fwd": sorted_fwd.launches}
+    launches = {"sorted_fwd": read_launches()["sorted_fwd"]}
     frames = svc.frames
     log(f"main path: {frames} frames rendered, kernel launches {launches}")
     check(frames >= 53, f"only {frames} frames rendered")
@@ -656,7 +902,8 @@ def main() -> int:
     # 7. fit: the training main path, then its step profile and K1/K2 on
     # the fitted model's inputs (padded to the fit's capacity, as in
     # training)
-    fit = fit_phase(Path(tmp.name))
+    fit = fit_phase(Path(tmp.name), "fit", [],
+                    {"splat_sep_fwd": 150, "splat_sep_bwd": 150})
     fit_dir = Path(tmp.name) / "fit"
     g_fit = load_gaussians_npz(fit_dir / "gaussians_fitted.npz",
                                device="cuda")
@@ -666,9 +913,10 @@ def main() -> int:
                                        / "cameras.npz"))
     with contextlib.redirect_stdout(io.StringIO()):
         targets, masks, _, cams = load_dataset(cfg_fit, device="cuda")
-    flag_steps, _ = train_steps(raw_fit, cams, to_device(targets, "cuda"),
-                                to_device(masks, "cuda"), steps=20,
-                                profile=10)
+    targets, masks = to_device(targets, "cuda"), to_device(masks, "cuda")
+    accum = RenderConfig(mode="accum")
+    flag_steps, _ = train_steps(raw_fit, cams, targets, masks, steps=20,
+                                profile=10, render_config=accum)
     log("fit step profile, flagship " + json.dumps(flag_steps))
     sep_cases = [sep_kernel_case(
         "flagship_128x128_fitted", staged_sep(activate(raw_fit), cams.view[0],
@@ -677,19 +925,72 @@ def main() -> int:
 
     # 8. at scale: 100k alive gaussians, 4 views at 512x512
     n_s, side = 100_000, 512
-    raw_s = raw_from_gaussians(make_gaussians(
-        **scene_arrays(n_s, args.seed + 2), device="cuda"), capacity=n_s)
+    arr_s = scene_arrays(n_s, args.seed + 2)
+    raw_s = raw_from_gaussians(make_gaussians(**arr_s, device="cuda"),
+                               capacity=n_s)
     cams_s = cam.orbit_cameras(4, side, side, device="cuda")
     rng = np.random.default_rng(args.seed)
     targets_s = to_device(rng.uniform(0, 1, (4, side, side, 3)), "cuda")
     masks_s = (targets_s.mean(dim=3) > 0.06).to(torch.float32)
     scale_steps, state_s = train_steps(raw_s, cams_s, targets_s, masks_s,
-                                       steps=10, profile=3)
+                                       steps=10, profile=3,
+                                       render_config=accum)
     log("fit step profile, 100k 512x512 x4 " + json.dumps(scale_steps))
     sep_cases.append(sep_kernel_case(
         "100k_512x512", staged_sep(activate(state_s.raw), cams_s.view[0],
                                    cams_s.proj[0], side, side), args.seed))
-    del state_s, raw_s, targets_s, masks_s
+    del state_s, raw_s
+
+    # 9. fit sorted: the EWA sorted training main path, its step profile,
+    # and K5 on the fitted model (the preview's inputs)
+    fit_s = fit_phase(Path(tmp.name), "fit_sorted", SORTED_FIT_ARGS,
+                      {"sorted_fwd": 900, "sorted_bwd": 900,
+                       "splat_v2_fwd": 1},
+                      expect_line="sorted pair budget k=")
+    g_fs = load_gaussians_npz(Path(tmp.name) / "fit_sorted"
+                              / "gaussians_fitted.npz", device="cuda")
+    raw_fs = raw_from_gaussians(g_fs, capacity=4096)
+    sorted_flag = RenderConfig(mode="sorted", footprint="ewa",
+                               sorted_pair_k=fit_s["pair_k"])
+    flag_sorted_steps, _ = train_steps(raw_fs, cams, targets, masks,
+                                       steps=20, profile=10,
+                                       render_config=sorted_flag)
+    log("fit step profile, flagship sorted "
+        + json.dumps(flag_sorted_steps))
+    v2_cases = [v2_case("flagship_ewa_128x128_fitted", activate(raw_fs),
+                        cams.view[0], cams.proj[0], 128, 128)]
+    flag_bwd_case = sorted_bwd_case(
+        "flagship_ewa_128x128_fitted", activate(raw_fs), cams.view[0],
+        cams.proj[0], 128, 128, "ewa", fit_s["pair_k"], args.seed)
+
+    # 10. at scale, sorted: the same 100k scene with seeded quaternions,
+    # EWA, the pair budget measured at its initial parameters
+    arr_s["quats"] = np.random.default_rng(args.seed + 2).normal(
+        size=(n_s, 4)).astype(np.float32)
+    g_e = make_gaussians(**arr_s, device="cuda")
+    raw_e = raw_from_gaussians(g_e, capacity=n_s)
+    pair_k_s = tiled.auto_pair_k(g_e, cams_s.view, cams_s.proj, side, side,
+                           footprint="ewa")
+    scale_sorted_steps, state_e = train_steps(
+        raw_e, cams_s, targets_s, masks_s, steps=10, profile=3,
+        render_config=RenderConfig(mode="sorted", footprint="ewa",
+                                   sorted_pair_k=pair_k_s))
+    scale_sorted_steps["pair_k"] = pair_k_s
+    log("fit step profile, 100k 512x512 x4 sorted "
+        + json.dumps(scale_sorted_steps))
+    g_trained = activate(state_e.raw)
+    del state_e, raw_e, targets_s, masks_s
+    bwd_cases = [sorted_bwd_case(f"100k_512x512_{fp}", g_trained,
+                                 cams_s.view[0], cams_s.proj[0], side, side,
+                                 fp, pair_k_s, args.seed)
+                 for fp in ("ewa", "axis")] + [flag_bwd_case]
+    grad_errs = small_grad_check()
+    v2_cases.append(v2_case("8192_ewa_512x512", make_gaussians(
+        **scene_arrays(8192, args.seed + 3),
+        quats=np.random.default_rng(args.seed + 3).normal(
+            size=(8192, 4)).astype(np.float32), device="cuda"),
+        cams_s.view[0], cams_s.proj[0], side, side))
+    del g_trained, g_e
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"],
@@ -698,45 +999,42 @@ def main() -> int:
         f"{clocks.stdout.strip()}")
     tmp.cleanup()
 
-    # 9. report
-    main_case = cases[0]
-    kernels = [{
-        "name": "sorted_fwd", "route": "cuda",
-        "source": "tpu_gaussians_torch/csrc/sorted_fwd.cu",
-        "replaces": "tpu_gaussians/ops/pallas/sorted.py:221",
-        "launches": launches["sorted_fwd"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["ms"], "kernel_ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": None,
-        "cases": [{k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms",
-                                     "bound_by", "max_abs_err",
-                                     "tiles_exit_differs")}
-                  for c in cases],
-    }]
+    # 11. report
+    def row(name, replaces, launches_, cases_, main_, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"tpu_gaussians_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches_,
+                "max_abs_err": max(c["max_abs_err"] for c in cases_),
+                "ms": main_["ms"], "kernel_ms": main_["ms"],
+                "plain_ms": main_["plain_ms"], "bound_ms": main_["bound_ms"],
+                "bound_by": main_["bound_by"], "library_ms": None,
+                **extra,
+                "cases": [{k: c[k] for k in ("case", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "max_abs_err")}
+                          for c in cases_]}
+
+    kernels = [row("sorted_fwd", "tpu_gaussians/ops/pallas/sorted.py:221",
+                   launches["sorted_fwd"], cases, cases[0],
+                   launches_fit_sorted=fit_s["launches"]["sorted_fwd"],
+                   training_max_abs_err=max(
+                       c["sorted_fwd_max_abs_err"] for c in bwd_cases))]
     for name, kind_, line in (("splat_sep_fwd", "fwd", 697),
                               ("splat_sep_bwd", "bwd", 742)):
-        main_sep = sep_cases[0]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"tpu_gaussians_torch/csrc/{name}.cu",
-            "replaces": f"tpu_gaussians/ops/pallas/splat.py:{line}",
-            "launches": fit["launches"][name],
-            "max_abs_err": max(c[f"{kind_}_max_abs_err"] for c in sep_cases),
-            "ms": main_sep[f"{kind_}_ms"], "kernel_ms": main_sep[f"{kind_}_ms"],
-            "plain_ms": main_sep[f"{kind_}_plain_ms"],
-            "bound_ms": main_sep[f"{kind_}_bound_ms"],
-            "bound_by": main_sep[f"{kind_}_bound_by"],
-            "library_ms": None,
-            "cases": [{"case": c["case"], "ms": c[f"{kind_}_ms"],
-                       "plain_ms": c[f"{kind_}_plain_ms"],
-                       "bound_ms": c[f"{kind_}_bound_ms"],
-                       "bound_by": c[f"{kind_}_bound_by"],
-                       "max_abs_err": c[f"{kind_}_max_abs_err"]}
-                      for c in sep_cases],
-        })
+        sep = [{"case": c["case"], "ms": c[f"{kind_}_ms"],
+                "plain_ms": c[f"{kind_}_plain_ms"],
+                "bound_ms": c[f"{kind_}_bound_ms"],
+                "bound_by": c[f"{kind_}_bound_by"],
+                "max_abs_err": c[f"{kind_}_max_abs_err"]} for c in sep_cases]
+        kernels.append(row(name, f"tpu_gaussians/ops/pallas/splat.py:{line}",
+                           fit["launches"][name], sep, sep[0]))
+    kernels.append(row("sorted_bwd", "tpu_gaussians/ops/pallas/sorted.py:1013",
+                       fit_s["launches"]["sorted_bwd"], bwd_cases,
+                       bwd_cases[0], grad_max_err_over_scale=max(
+                           grad_errs.values())))
+    kernels.append(row("splat_v2_fwd", "tpu_gaussians/ops/pallas/splat.py:452",
+                       fit_s["launches"]["splat_v2_fwd"], v2_cases,
+                       v2_cases[0]))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -15,7 +15,14 @@ Tolerances:
 - splat_sep_bwd (K2): rtol 2e-4, and atol 2e-5 times the largest
   magnitude of the output column (at least 2e-5): the moments are sums of
   signed terms that cancel, whose f32 rounding is relative to the terms,
-  not to the sum."""
+  not to the sum.
+- sorted_bwd (K4), and the sorted render's gradients: rtol 2e-3 and atol
+  2e-4 times the largest magnitude of the output column (or parameter),
+  the JAX suite's for its fused sorted backward (tests/test_sorted_vjp.py):
+  ctg - P_i is a difference of near-equal sums divided by 1 - a >= 1e-4,
+  and the kernel updates T per gaussian where the twin does per 128-slot
+  sub-block.
+- splat_v2_fwd (K5): rtol 1e-5 / atol 1e-5, sums of positive terms."""
 
 import numpy as np
 import pytest
@@ -23,7 +30,8 @@ import torch
 
 from tpu_gaussians_torch.core import camera as tcam
 from tpu_gaussians_torch.core.types import RenderConfig, gaussians_from_numpy
-from tpu_gaussians_torch.kernels import sorted_fwd, splat_sep
+from tpu_gaussians_torch.kernels import (
+    build, sorted_bwd, sorted_fwd, splat_sep, splat_v2)
 from tpu_gaussians_torch.ops import splat as tsplat
 from tpu_gaussians_torch.ops.common import SplatInputs
 from tpu_gaussians_torch.ops.dispatch import render
@@ -31,7 +39,7 @@ from tpu_gaussians_torch.ops.dispatch import render
 TILES_X, TILES_Y, CAP = 2, 2, 1024
 
 
-def synthetic_lists(axis, device="cpu", seed=0):
+def synthetic_lists(axis, device="cpu", seed=0, cnt=(1024, 1024, 900, 300)):
     """Per-tile slot lists in the kernel's input layout: splats spread over
     each tile, 10-40 px wide. Tile 0 is near-opaque and exits early at
     either threshold, tile 1 translucent (never exits), tile 2 mid-way,
@@ -40,7 +48,7 @@ def synthetic_lists(axis, device="cpu", seed=0):
     n_tiles = TILES_X * TILES_Y
     gd = np.zeros((n_tiles, CAP, 16), np.float32)
     gd[..., 2] = gd[..., 4] = 1.0                      # dead row: op 0
-    cnt = np.array([1024, 1024, 900, 300], np.int32)
+    cnt = np.array(cnt, np.int32)
     op_range = [(0.9, 0.99), (0.01, 0.05), (0.3, 0.8), (0.5, 0.9)]
     for t in range(n_tiles):
         m = cnt[t]
@@ -199,6 +207,116 @@ def test_splat_sep_kernels_match_plain_twins(cuda, case):
         "splat_sep_bwd": before["splat_sep_bwd"] + 2}
     ref_b = splat_sep.sep_bwd_plain(lo, cnt, gdata, gband, rows, wp, nb)
     assert_moments_close(out.cpu(), ref_b.cpu())
+
+
+@pytest.mark.cuda
+def test_build_all_builds_every_kernel(cuda):
+    build.build_all()
+    for name in ("sorted_fwd", "sorted_bwd", "splat_sep_fwd",
+                 "splat_sep_bwd", "splat_v2_fwd"):
+        assert name in build.KERNELS and build.library_path(name).exists()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("footprint", ["axis", "ewa"])
+@pytest.mark.parametrize("exit_t", [1e-6, 1e-3])
+def test_sorted_bwd_kernel_matches_plain_twin(cuda, footprint, exit_t):
+    """K4 on K3's outputs: tile 0 exits after one chunk, tile 2 holds 900
+    slots (a partial last chunk), tile 3 none."""
+    axis = footprint == "axis"
+    gdense, cnt = synthetic_lists(axis, device=cuda, cnt=(1024, 1024, 900, 0))
+    acc, chunks = sorted_fwd.sorted_tiles(gdense, cnt, TILES_X, axis=axis,
+                                          exit_t=exit_t)
+    gen = torch.Generator().manual_seed(6)
+    g8 = torch.randn(acc.shape, generator=gen).to(cuda)
+    before = sorted_bwd.launches
+    out = sorted_bwd.sorted_bwd(gdense, cnt, acc, g8, chunks, TILES_X, axis)
+    again = sorted_bwd.sorted_bwd(gdense, cnt, acc, g8, chunks, TILES_X, axis)
+    torch.cuda.synchronize()
+    assert sorted_bwd.launches == before + 2
+    assert torch.equal(out, again)          # deterministic: no atomics
+    assert chunks.tolist()[0] == 1 and chunks.tolist()[3] == 0
+    ref = sorted_bwd.sorted_bwd_plain(gdense, cnt, acc, g8, chunks, TILES_X,
+                                      axis)
+    assert_sorted_moments_close(out.cpu(), ref.cpu())
+    rows = out.reshape(4, CAP, 16).cpu()
+    assert not rows[0, 512:].any() and not rows[3].any()
+    assert not rows[2, 900:].any()
+
+
+def assert_sorted_moments_close(out, ref):
+    """K4 rows against their twin at the tolerance stated above."""
+    out, ref = np.asarray(out), np.asarray(ref)
+    scale = np.abs(ref).max(axis=0)
+    bad = np.abs(out - ref) > 2e-3 * np.abs(ref) + 2e-4 * scale
+    assert not bad.any(), (
+        f"{int(bad.sum())} values off; columns {sorted(set(np.where(bad)[1]))}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("footprint", ["axis", "ewa"])
+def test_sorted_render_grads_match_plain_renderer(cuda, footprint):
+    """render(mode="sorted") values and gradients: tiled (K3/K4 through the
+    autograd Function) against the plain renderer, on the card."""
+    rng = np.random.default_rng(3)
+    n, w, h = 2000, 256, 64
+    arr = dict(
+        means=rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32),
+        scales=rng.uniform(0.01, 0.08, (n, 3)).astype(np.float32),
+        opacities=rng.uniform(0.1, 0.9, (n,)).astype(np.float32),
+        colors=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        quats=rng.normal(size=(n, 4)).astype(np.float32))
+    target = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(
+        np.float32)).to(cuda)
+    c = tcam.orbit_cameras(3, w, h, device=cuda)[1]
+    cfg = RenderConfig(width=w, height=h, mode="sorted", return_aux=True,
+                       footprint=footprint)
+    outs = {}
+    for impl in ("tiled", "torch"):
+        g = gaussians_from_numpy(arr, device=cuda)
+        leaves = [t.requires_grad_(True) for t in (
+            g.means, g.scales, g.opacities, g.colors, g.quats)]
+        img, alpha, _ = render(g, c, cfg.replace(impl=impl))
+        ((img - target).abs().mean() + alpha.mean()).backward()
+        outs[impl] = [img.detach(), alpha.detach()] + [
+            t.grad for t in leaves if t.grad is not None]
+    assert len(outs["tiled"]) == len(outs["torch"]) == (
+        7 if footprint == "ewa" else 6)
+    for a, b in zip(outs["tiled"], outs["torch"]):
+        scale = float(b.abs().max())
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=2e-3, atol=2e-4 * scale)
+
+
+# K5 cases: n not a multiple of nb (below SORT_MM_MAX), a 1-pixel-high
+# frame, and y-sorted gaussians over many bands.
+V2_CASES = {
+    "ragged_n": dict(n=1000, height=48, width=96),
+    "one_row": dict(n=300, height=1, width=700),
+    "many": dict(n=8000, height=128, width=256),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(V2_CASES))
+def test_splat_v2_kernel_matches_plain_twin(cuda, case):
+    kw = V2_CASES[case]
+    n, height, width = kw["n"], kw["height"], kw["width"]
+    cols = list(synthetic_splats(n, height, width, seed=4))
+    rng = np.random.default_rng(5)
+    cols[3] = (rng.uniform(-0.9, 0.9, n) * np.sqrt(cols[2] * cols[4])
+               ).astype(np.float32)
+    lo, cnt, gdata, nb, hw_pad = tsplat._v2_prep(
+        tsplat.y_sorted(splat_inputs(cols, cuda)), height, width)
+    if case == "ragged_n":
+        assert n % nb != 0
+    before = splat_v2.launches
+    acc = splat_v2.splat_v2_fwd(lo, cnt, gdata, hw_pad, width, nb)
+    torch.cuda.synchronize()
+    assert splat_v2.launches == before + 1
+    ref = splat_v2.v2_fwd_plain(lo, cnt, gdata, hw_pad, width, nb)
+    np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -37,7 +37,9 @@ def test_port_files_exist():
     for expected in ("chip_smoke.py", "tpu_gaussians_torch/cli/serve.py",
                      "tpu_gaussians_torch/kernels/sorted_fwd.py",
                      "tpu_gaussians_torch/cli/fit.py",
-                     "tpu_gaussians_torch/kernels/splat_sep.py"):
+                     "tpu_gaussians_torch/kernels/splat_sep.py",
+                     "tpu_gaussians_torch/kernels/sorted_bwd.py",
+                     "tpu_gaussians_torch/kernels/splat_v2.py"):
         assert expected in names
 
 

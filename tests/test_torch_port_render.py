@@ -121,15 +121,27 @@ def test_return_stats_and_row_window_match_pallas():
 
 
 def test_tiled_path_refuses_grad_and_accum_mode():
+    """The tiled sorted path has its backward (K4): its gradients equal the
+    plain renderer's. EWA accumulation renders forward (K5) and refuses
+    only a gradient (K6)."""
     _, tg = scene(50, 4)
     tc = tcam.orbit_cameras(1, 64, 32, device="cpu")
     cfg = TConfig(width=64, height=32, mode="sorted", impl="tiled")
+    grads = {}
+    for impl in ("tiled", "torch"):
+        g = tg.replace(means=tg.means.clone().requires_grad_(True))
+        img = tdispatch.render(g, tc, cfg.replace(impl=impl))
+        img.sum().backward()
+        grads[impl] = g.means.grad
+    assert torch.isfinite(grads["tiled"]).all() and grads["tiled"].any()
+    np.testing.assert_allclose(grads["tiled"].numpy(), grads["torch"].numpy(),
+                               rtol=2e-3,
+                               atol=2e-4 * float(grads["torch"].abs().max()))
+    ewa = cfg.replace(mode="accum", footprint="ewa")
+    with torch.no_grad():
+        img = tdispatch.render(tg, tc, ewa)
+        ref = tdispatch.render(tg, tc, ewa.replace(impl="torch"))
+    np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
     g = tg.replace(means=tg.means.clone().requires_grad_(True))
-    with pytest.raises(RuntimeError, match="training slice"):
-        tdispatch.render(g, tc, cfg)
-    img = tdispatch.render(g, tc, cfg.replace(impl="torch"))
-    img.sum().backward()                     # the plain path has autograd
-    assert torch.isfinite(g.means.grad).all()
-    # accum mode has its kernels (slice 2) but not yet the EWA footprint's
     with pytest.raises(NotImplementedError, match="slice 4"):
-        tdispatch.render(tg, tc, cfg.replace(mode="accum", footprint="ewa"))
+        tdispatch.render(g, tc, ewa)

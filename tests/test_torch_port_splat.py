@@ -160,11 +160,24 @@ def test_splat_accumulate_values_and_grads_match_jax(n, height, width):
 
 
 def test_general_conic_accumulation_is_refused():
-    cols = synthetic_splats(50, 16, 16)
+    """splat_accumulate(axis=False) is K5's forward, equal to JAX's; its
+    gradient (K6) is refused."""
+    cols = list(synthetic_splats(50, 16, 16))
+    cols[3] = (0.5 * np.sqrt(cols[2] * cols[4])).astype(np.float32)
     s = tcommon.SplatInputs(*map(torch.from_numpy, cols[:5]),
                             sigma_x=torch.ones(50), sigma_y=torch.ones(50),
                             op_eff=torch.from_numpy(cols[5]),
                             feats=torch.from_numpy(cols[6]))
+    with torch.no_grad():
+        acc = TS.splat_accumulate(s, 16, 16, axis=False)
+    px, py, ca, cb, cc, op, feats = map(jnp.asarray, cols)
+    ref = JS.splat_accumulate(jcommon.SplatInputs(
+        px=px, py=py, conic_a=ca, conic_b=cb, conic_c=cc,
+        sigma_x=jnp.ones(50), sigma_y=jnp.ones(50), op_eff=op, feats=feats),
+        16, 16, axis=False)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    s = s._replace(px=s.px.clone().requires_grad_(True))
     with pytest.raises(NotImplementedError, match="slice 4"):
         TS.splat_accumulate(s, 16, 16, axis=False)
 
@@ -199,7 +212,8 @@ def test_kernel_builds_need_nvcc():
     if build.shutil.which("nvcc") or build.os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc present: this checks the no-toolchain refusal")
-    for name in ("splat_sep_fwd", "splat_sep_bwd"):
+    for name in ("splat_sep_fwd", "splat_sep_bwd", "sorted_bwd",
+                 "splat_v2_fwd"):
         assert name in build.KERNELS
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build_all((name,))
@@ -240,13 +254,24 @@ def test_accum_render_batched_and_stats_match_jax():
 
 
 def test_tiled_accum_refuses_unported_kernels():
+    """EWA accumulation below BINNED_MIN_N renders through K5; the binned
+    kernels (accum_binned='on', or EWA at n >= BINNED_MIN_N under 'auto')
+    are refused."""
     _, tg = scene(50, 7)
     c = tcam.orbit_cameras(1, 64, 32, device="cpu")
     cfg = TConfig(width=64, height=32, mode="accum", impl="tiled")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tdispatch.render(tg, c, cfg.replace(footprint="ewa"))
+    with torch.no_grad():
+        img = tdispatch.render(tg, c, cfg.replace(footprint="ewa"))
+    # the plain renderer takes either footprint
+    ref = tdispatch.render(tg, c, cfg.replace(footprint="ewa", impl="torch"))
+    assert img.shape == (1, 32, 64, 3) and bool(torch.isfinite(img).all())
+    np.testing.assert_allclose(img.numpy(), ref.detach().numpy(), rtol=1e-5,
+                               atol=1e-5)
     with pytest.raises(NotImplementedError, match="slice 4"):
         tdispatch.render(tg, c, cfg.replace(accum_binned="on"))
-    # the plain renderer takes either footprint
-    img = tdispatch.render(tg, c, cfg.replace(footprint="ewa", impl="torch"))
-    assert img.shape == (1, 32, 64, 3) and bool(torch.isfinite(img).all())
+    assert tdispatch.uses_binned_accum(cfg.replace(footprint="ewa"),
+                                       tdispatch.BINNED_MIN_N)
+    assert not tdispatch.uses_binned_accum(
+        cfg.replace(footprint="ewa", accum_binned="off"),
+        tdispatch.BINNED_MIN_N)
+    assert not tdispatch.uses_binned_accum(cfg, 10 ** 7)

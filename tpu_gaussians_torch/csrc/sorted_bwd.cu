@@ -1,0 +1,215 @@
+// Depth-sorted front-to-back compositing over per-tile slot lists, backward.
+//
+// Replaces the TPU kernel tpu_gaussians/ops/pallas/sorted.py:_sorted_bwd_kernel,
+// launched there by _sorted_bwd_call. For C = sum_i T_i a_i f_i per pixel and
+// feature (T_i the transmittance before slot i in the tile's depth order, a_i
+// its clamped alpha, f_i its features [r, g, b, 1, z, ...]) and the cotangent
+// g8 of the forward's output acc, it recomputes the forward in slot order and
+// writes, per slot, the row
+//
+//   [Mdx, Mdy, Mxx, Mxy, Myy, M0, g_feat(8), 0, 0]          (summed over pixels)
+//
+//   gf = f_i . g8,  P_i = sum_{j<=i} T_j a_j gf_j,  ctg = acc . g8
+//   g_a = T_i gf - (ctg - P_i) / (1 - a_i)
+//   g_e = a_i g_a where 1e-5 <= a_raw <= 0.9999, else 0
+//   M0 = sum g_e, Mdx = sum g_e dx, Mxx = sum g_e dx^2, Mdy, Myy likewise,
+//   Mxy = sum g_e dx dy (0 for the axis footprint), g_feat = sum T_i a_i g8.
+//
+// S_i = ctg - P_i is the part of C.g8 behind slot i, so the pass runs front to
+// back like the forward. It takes the forward's exit decisions instead of
+// deciding again: tile t processes exactly the slots of its first
+// chunks_done[t] 512-slot chunks (what sorted_fwd.cu composited), and T, a_raw
+// and the clamp are computed with sorted_fwd.cu's expressions, so that T_i and
+// ctg belong to the acc being differentiated. Rows of other slots are zero.
+//
+// Bound: f32 ALU work, 66 operations (60 for the axis footprint) and one exp
+// per (slot, pixel) composited, counted from the pixel loop below, against 64 B read and written per slot and 64 B read per pixel
+// (acc, g8). Design: one block per 16x128 tile, 256 threads that each own the
+// 8 pixels of one column that sorted_fwd.cu gives them, with their g8, ctg, T
+// and P in registers. Slot rows stream through shared memory 64 at a time.
+// Per slot each thread sums its pixels' 14 terms (one column, so the dx
+// moments factor out of the pixel loop), a reduce-scatter over the warp's
+// lanes (16 shuffles) leaves each warp's 16 partial sums in shared memory,
+// and after each 64 slots the 8 warps' partials are added in a fixed order
+// and written as whole rows. No atomics: two launches give the same bits.
+//
+// Inputs: gdense (n_tiles*cap, 16) f32 rows [px, py, conic_a, conic_b,
+// conic_c, op, f(8), 0, 0]; cnt, chunks_done (n_tiles,) int32; acc, g8
+// (8, n_tiles*2048) f32, pixel l of tile t at column t*2048 + l. Output
+// out (n_tiles*cap, 16) f32. Build: nvcc -gencode arch=compute_90a,code=sm_90a
+// -O3 -std=c++17 -shared -Xcompiler -fPIC.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TH = 16;           // tile height (rows)
+constexpr int TWC = 128;         // tile width (columns)
+constexpr int TPS = TH * TWC;    // pixels per tile
+constexpr int NBS = 512;         // slots per chunk (the forward's exit step)
+constexpr int GD = 16;           // floats per slot row
+constexpr int FEAT = 8;          // feature rows of acc and g8
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int PPT = TPS / THREADS;   // pixels per thread (8)
+constexpr int SB = 64;           // slots staged per pass: SB*4 == THREADS float4s
+constexpr float ALPHA_CUTOFF = 1e-5f;
+constexpr float A_MAX = 0.9999f;
+
+static_assert(SB * GD / 4 == THREADS, "one float4 of the staged rows per thread");
+
+// On return lane l holds the sum over the warp's 32 lanes of v[(l >> 1) & 15]
+// (v is clobbered). Each step hands half of the values still held to the
+// partner lane and adds the other half: 8 + 4 + 2 + 1 + 1 shuffles.
+__device__ __forceinline__ float warp_reduce_scatter16(float (&v)[16]) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int step = 0; step < 4; ++step) {
+    const int half = 8 >> step, bit = 16 >> step;
+    const bool up = lane & bit;
+#pragma unroll
+    for (int k = 0; k < half; ++k) {
+      const float send = up ? v[k] : v[k + half];
+      const float keep = up ? v[k + half] : v[k];
+      v[k] = keep + __shfl_xor_sync(full, send, bit);
+    }
+  }
+  return v[0] + __shfl_xor_sync(full, v[0], 1);
+}
+
+template <bool AXIS>
+__global__ void __launch_bounds__(THREADS)
+sorted_bwd_kernel(const float* __restrict__ gdense,
+                  const int* __restrict__ cnt,
+                  const float* __restrict__ acc,
+                  const float* __restrict__ g8,
+                  const int* __restrict__ chunks_done,
+                  float* __restrict__ out,
+                  int tiles_x, int n_tiles, int cap) {
+  __shared__ float4 rows[SB * GD / 4];             // 4 KB: staged slot rows
+  __shared__ float4 part4[WARPS * SB * GD / 4];    // 32 KB: warp partial rows
+  float* part = reinterpret_cast<float*>(part4);   // [WARPS][SB][16]
+
+  const int tile = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int col = threadIdx.x % TWC;
+  const int row0 = threadIdx.x / TWC;        // rows row0, row0+2, ..., +14
+  const float gx = static_cast<float>((tile % tiles_x) * TWC + col) + 0.5f;
+  const int gy0 = (tile / tiles_x) * TH + row0;
+
+  // Per pixel: the cotangent, ctg = acc . g8, T and the prefix P.
+  const size_t plane = static_cast<size_t>(n_tiles) * TPS;
+  const size_t pix0 = static_cast<size_t>(tile) * TPS + row0 * TWC + col;
+  float gr[PPT][FEAT], ctg[PPT], T[PPT], P[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const size_t p = pix0 + 2 * i * TWC;
+    ctg[i] = 0.f;
+#pragma unroll
+    for (int f = 0; f < FEAT; ++f) {
+      gr[i][f] = g8[f * plane + p];
+      ctg[i] += acc[f * plane + p] * gr[i][f];
+    }
+    T[i] = 1.f;
+    P[i] = 0.f;
+  }
+
+  const int n_slots = min(min(cnt[tile], cap), chunks_done[tile] * NBS);
+  const float4* src = reinterpret_cast<const float4*>(
+      gdense + static_cast<size_t>(tile) * cap * GD);
+  float4* dst = reinterpret_cast<float4*>(
+      out + static_cast<size_t>(tile) * cap * GD);
+
+  for (int base = 0; base < n_slots; base += SB) {
+    const int m = min(SB, n_slots - base);
+    // The previous pass's reads of rows and part are over.
+    __syncthreads();
+    if (threadIdx.x < m * (GD / 4))
+      rows[threadIdx.x] = src[static_cast<size_t>(base) * (GD / 4) + threadIdx.x];
+    __syncthreads();
+
+    for (int s = 0; s < m; ++s) {
+      const float4 h0 = rows[s * 4 + 0];    // px, py, a, b
+      const float4 h1 = rows[s * 4 + 1];    // c, op, f0, f1
+      const float4 h2 = rows[s * 4 + 2];    // f2, f3, f4, f5
+      const float4 h3 = rows[s * 4 + 3];    // f6, f7, 0, 0
+      const float fe[FEAT] = {h1.z, h1.w, h2.x, h2.y, h2.z, h2.w, h3.x, h3.y};
+      const float dx = gx - h0.x;
+      const float ex = AXIS ? expf(-0.5f * h0.z * (dx * dx)) : 0.f;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f;   // sum g_e, g_e dy, g_e dy^2
+      float gfe[FEAT];
+#pragma unroll
+      for (int f = 0; f < FEAT; ++f) gfe[f] = 0.f;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        const float dy = static_cast<float>(gy0 + 2 * i) + 0.5f - h0.y;
+        float a_raw;
+        if (AXIS) {
+          a_raw = (h1.y * expf(-0.5f * h1.x * (dy * dy))) * ex;
+        } else {
+          a_raw = h1.y * expf(-0.5f * (h0.z * dx * dx + 2.f * h0.w * dx * dy
+                                       + h1.x * dy * dy));
+        }
+        const float a_s = a_raw < ALPHA_CUTOFF ? 0.f : fminf(a_raw, A_MAX);
+        const float w = T[i] * a_s;
+        float gf = 0.f;
+#pragma unroll
+        for (int f = 0; f < FEAT; ++f) gf += fe[f] * gr[i][f];
+        P[i] += w * gf;
+        if (a_raw >= ALPHA_CUTOFF && a_raw <= A_MAX) {
+          const float g_e = a_s * (T[i] * gf - (ctg[i] - P[i]) / (1.f - a_s));
+          s0 += g_e;
+          s1 += g_e * dy;
+          s2 += g_e * dy * dy;
+        }
+#pragma unroll
+        for (int f = 0; f < FEAT; ++f) gfe[f] += w * gr[i][f];
+        T[i] *= 1.f - a_s;
+      }
+      float v[16] = {dx * s0, s1, dx * dx * s0, AXIS ? 0.f : dx * s1, s2, s0,
+                     gfe[0], gfe[1], gfe[2], gfe[3], gfe[4], gfe[5], gfe[6],
+                     gfe[7], 0.f, 0.f};
+      const float total = warp_reduce_scatter16(v);
+      if ((lane & 1) == 0)
+        part[(warp * SB + s) * GD + ((lane >> 1) & 15)] = total;
+    }
+    __syncthreads();
+
+    // Row base + r, quarter q: the 8 warps' partials in warp order.
+    const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+    if (r < m) {
+      float4 sum = part4[r * 4 + q];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) {
+        const float4 p = part4[(w * SB + r) * 4 + q];
+        sum.x += p.x; sum.y += p.y; sum.z += p.z; sum.w += p.w;
+      }
+      dst[static_cast<size_t>(base + r) * 4 + q] = sum;
+    }
+  }
+
+  // Slots the forward did not composite: past cnt, or in chunks after the exit.
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = n_slots * 4 + threadIdx.x; k < cap * 4; k += THREADS)
+    dst[k] = zero;
+}
+
+}  // namespace
+
+extern "C" cudaError_t sorted_bwd_launch(const float* gdense, const int* cnt,
+                                         const float* acc, const float* g8,
+                                         const int* chunks_done, float* out,
+                                         int tiles_x, int n_tiles, int cap,
+                                         int axis, cudaStream_t stream) {
+  if (n_tiles <= 0) return cudaSuccess;
+  if (axis) {
+    sorted_bwd_kernel<true><<<n_tiles, THREADS, 0, stream>>>(
+        gdense, cnt, acc, g8, chunks_done, out, tiles_x, n_tiles, cap);
+  } else {
+    sorted_bwd_kernel<false><<<n_tiles, THREADS, 0, stream>>>(
+        gdense, cnt, acc, g8, chunks_done, out, tiles_x, n_tiles, cap);
+  }
+  return cudaGetLastError();
+}

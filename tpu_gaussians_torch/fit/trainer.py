@@ -33,7 +33,8 @@ from tpu_gaussians_torch.io import image as im
 from tpu_gaussians_torch.io.npz import load_gaussians_npz, save_raw_npz
 from tpu_gaussians_torch.models.gaussian_model import (
     RawParams, activate, init_params, raw_from_gaussians)
-from tpu_gaussians_torch.ops.dispatch import render
+from tpu_gaussians_torch.ops.dispatch import render, uses_binned_accum
+from tpu_gaussians_torch.ops.sorted import auto_pair_k
 from tpu_gaussians_torch.utils.config import FitConfig, resolve_render_mode
 
 METRIC_KEYS = ("loss", "recon", "silhouette", "depth", "reg", "psnr",
@@ -81,6 +82,28 @@ def _refuse_unported(config: FitConfig) -> None:
         raise NotImplementedError(
             "checkpoint_every > 0 and --resume are ported with the "
             "checkpoint slice")
+
+
+def _refuse_unported_kernels(config: FitConfig, mode: str,
+                             capacity: int) -> None:
+    """Refuse, before the first step, a fit whose training or end-of-fit
+    preview would need a kernel that is not ported yet."""
+    if config.impl == "torch":
+        return
+    if mode == "accum" and config.footprint == "ewa":
+        raise NotImplementedError(
+            "accumulation training with the EWA footprint needs the "
+            "gradient of the general-conic accumulation (TPU kernel K6), "
+            "ported in slice 4; train sorted (--render_mode sorted, or "
+            "capacity >= 4096 under auto), or use --impl torch")
+    if uses_binned_accum(RenderConfig(footprint=config.footprint,
+                                      accum_binned=config.accum_binned),
+                         capacity):
+        raise NotImplementedError(
+            f"the end-of-fit preview (accum mode, {capacity} gaussians) "
+            "would render through the tile-binned accumulation (TPU "
+            "kernels K7/K8), ported in slice 4; pass --accum_binned off "
+            "for the dense band kernels, or use --impl torch")
 
 
 def fit(
@@ -135,15 +158,22 @@ def fit(
             return torch.randn((capacity, 3), generator=gen).to(dev)
 
     mode = resolve_render_mode(config, capacity)
-    if mode == "sorted":
-        raise NotImplementedError(
-            "sorted-mode training (the fused backward kernel K4) is ported "
-            "in slice 3; train with render_mode='accum'")
+    _refuse_unported_kernels(config, mode, capacity)
+    pair_k = config.sorted_pair_k
+    if mode == "sorted" and pair_k == 0 and config.impl != "torch":
+        # The budget measured at init (the generic k_pairs formula
+        # over-budgets real scenes); growth past it shows in the binner's
+        # clipped_rect_pairs counter and the lossy-render warning below.
+        pair_k = auto_pair_k(activate(raw), cameras.view, cameras.proj,
+                             config.width, config.height,
+                             footprint=config.footprint)
+        print(f"sorted pair budget k={pair_k} (measured max rect, "
+              f"auto; override with --sorted_pair_k)")
     render_config = RenderConfig(
         width=config.width, height=config.height, impl=config.impl,
         footprint=config.footprint, mode=mode,
         accum_binned=config.accum_binned,
-        sorted_pair_k=config.sorted_pair_k, return_aux=True)
+        sorted_pair_k=pair_k, return_aux=True)
     loss_config = LossConfig(
         silhouette_weight=config.silhouette_weight,
         depth_weight=config.depth_weight, reg_opacity=config.reg_opacity,
@@ -176,6 +206,7 @@ def fit(
         return nxt
 
     rows = []   # per-step metric rows, fetched from the device at the end
+    warned_lossy = False   # warn once when a step's render dropped work
     t0 = time.perf_counter()
     last_log_t, last_log_it = t0, 0
     it, seg_end, mlr = 0, 0, 1.0
@@ -198,6 +229,19 @@ def fit(
             last_log_t, last_log_it = now, it
             print(f"iter {it:4d}  loss={lv:.6f}  N={n}  "
                   f"{rate / 1e6:.1f} Mpix/s")
+            dropped = float(rows[-1][METRIC_KEYS.index(
+                "binner_dropped_pairs")])
+            clipped = float(rows[-1][METRIC_KEYS.index(
+                "binner_clipped_rect_pairs")])
+            if not warned_lossy and (dropped > 0 or clipped > 0):
+                warned_lossy = True
+                print(f"WARNING: this step's render dropped work to "
+                      f"capacity/budget limits ({dropped:.0f} pairs at "
+                      f"tile capacity, {clipped:.0f} rect-budget "
+                      f"overlaps; conservative W_CULL extents in accum "
+                      f"mode). Counters are in metrics.jsonl; raise "
+                      f"tile capacity / use accum_binned=off if "
+                      f"exactness matters.")
 
         densify_fires = (config.densify_interval > 0
                          and it % config.densify_interval == 0)
@@ -250,8 +294,14 @@ def write_artifacts(out_dir: Path, result: FitResult,
     (out_dir / "loss.txt").write_text(
         "\n".join(f"{v:.8f}" for v in result.loss_log), encoding="utf-8")
     cam0 = result.cameras[0] if result.cameras.batched else result.cameras
+    # Unlike the JAX trainer's preview (which always takes accum_binned
+    # "auto"), this one takes the fit's accum_binned, so that --accum_binned
+    # off keeps an EWA preview on the dense K5 at any capacity while the
+    # binned accumulation kernels (K7/K8) are not ported. The image is the
+    # same sum by another route; the difference goes when K7/K8 land.
     render_config = RenderConfig(width=config.width, height=config.height,
-                                 impl=config.impl, footprint=config.footprint)
+                                 impl=config.impl, footprint=config.footprint,
+                                 accum_binned=config.accum_binned)
     with torch.no_grad():
         pred0 = render(activate(result.raw), cam0, render_config)
     im.save_image_png(out_dir / "preview_view0.png", pred0.cpu().numpy())

@@ -25,7 +25,8 @@ from typing import Dict, List
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-KERNELS = ("sorted_fwd", "splat_sep_fwd", "splat_sep_bwd")
+KERNELS = ("sorted_fwd", "sorted_bwd", "splat_sep_fwd", "splat_sep_bwd",
+           "splat_v2_fwd")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

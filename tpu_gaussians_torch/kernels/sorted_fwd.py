@@ -29,6 +29,7 @@ from tpu_gaussians_torch.ops.binning import (
 
 GD_ROWS = 16   # floats per slot row
 FEAT_PAD = 8   # output rows
+EXP_FLOOR = -30.0   # the twins' exponent floor (see slot_alpha)
 
 launches = 0   # kernel launches made by sorted_tiles
 
@@ -52,6 +53,59 @@ def _check(gdense: torch.Tensor, cnt: torch.Tensor) -> Tuple[int, int]:
     return n_tiles, gdense.shape[0] // n_tiles
 
 
+def tile_pixels(n_tiles: int, tiles_x: int, device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pixel centres gx, gy (n_tiles, TPS) of every tile; pixel l of a tile
+    is at row l // 128, column l % 128."""
+    tile = torch.arange(n_tiles, device=device)[:, None]
+    pix = torch.arange(TPS, device=device)[None, :]
+    gx = ((tile % tiles_x) * TWC + pix % TWC).float() + 0.5
+    gy = ((tile // tiles_x) * TH + pix // TWC).float() + 0.5
+    return gx, gy
+
+
+def slot_alpha(gd: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
+               axis: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Raw alpha of slot rows gd (T, m, 16) at the tiles' pixels, with the
+    arithmetic of `_sorted_kernel` (sorted.py:261-269; the axis footprint
+    in `_a_raw_sep`'s factorised form, :206-218) -> (a_raw, dx, dy), each
+    (T, m, TPS).
+
+    Exponents are floored at EXP_FLOOR: torch's CPU exp takes a slow path
+    below about -87, where most far (slot, pixel) pairs lie, and with op
+    <= 1 any alpha that the floor touches (< 9.4e-14) is under the 1e-5
+    cutoff with or without it, so no clamped alpha changes."""
+    dx = gx[:, None, :] - gd[..., 0:1]
+    dy = gy[:, None, :] - gd[..., 1:2]
+
+    def exp(e):
+        return torch.exp(torch.clamp(e, min=EXP_FLOOR))
+
+    if axis:
+        txd, tyd = dx[..., :TWC], dy[..., ::TWC]   # (T, m, TWC), (T, m, TH)
+        exf = exp(-0.5 * gd[..., 2:3] * (txd * txd))
+        eyop = gd[..., 5:6] * exp(-0.5 * gd[..., 4:5] * (tyd * tyd))
+        a_raw = (eyop[..., :, None] * exf[..., None, :]).reshape(dx.shape)
+    else:
+        e = -0.5 * (gd[..., 2:3] * dx * dx + 2.0 * gd[..., 3:4] * dx * dy
+                    + gd[..., 4:5] * dy * dy)
+        a_raw = gd[..., 5:6] * exp(e)
+    return a_raw, dx, dy
+
+
+def clamp_alpha(a_raw: torch.Tensor) -> torch.Tensor:
+    """a_s: 0 below ALPHA_CUTOFF, else a_raw clamped to A_MAX."""
+    return torch.where(a_raw < ALPHA_CUTOFF, torch.zeros_like(a_raw),
+                       torch.clamp(a_raw, 0.0, A_MAX))
+
+
+def exclusive_cumprod(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Index i gets prod(x[0..i-1]) along `dim`; index 0 gets 1."""
+    ones = torch.ones_like(x.narrow(dim, 0, 1))
+    return torch.cat([ones, torch.cumprod(x, dim=dim).narrow(
+        dim, 0, x.shape[dim] - 1)], dim=dim)
+
+
 def sorted_tiles_plain(gdense: torch.Tensor, cnt: torch.Tensor, tiles_x: int,
                        axis: bool = False, exit_t: float = EXIT_T
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -63,16 +117,7 @@ def sorted_tiles_plain(gdense: torch.Tensor, cnt: torch.Tensor, tiles_x: int,
     n_tiles, cap = _check(gdense, cnt)
     dev = gdense.device
     g = gdense.reshape(n_tiles, cap, GD_ROWS)
-    tile = torch.arange(n_tiles, device=dev)
-    tx = (tile % tiles_x)[:, None]
-    ty = (tile // tiles_x)[:, None]
-    pix = torch.arange(TPS, device=dev)[None, :]
-    if axis:
-        xc = (tx * TWC + torch.arange(TWC, device=dev)).float() + 0.5
-        yr = (ty * TH + torch.arange(TH, device=dev)).float() + 0.5
-    else:
-        gx = (tx * TWC + pix % TWC).float() + 0.5          # (T, TPS)
-        gy = (ty * TH + pix // TWC).float() + 0.5
+    gx, gy = tile_pixels(n_tiles, tiles_x, dev)
 
     rgbw = torch.zeros((n_tiles, FEAT_PAD, TPS), dtype=torch.float32,
                        device=dev)
@@ -81,30 +126,14 @@ def sorted_tiles_plain(gdense: torch.Tensor, cnt: torch.Tensor, tiles_x: int,
     sub = NBS // 4
     for j in range(cap // NBS):
         upd = (j * NBS < cnt) & (trans.amax(dim=1) > exit_t)
+        if not bool(upd.any()):     # no tile composites this chunk or later
+            break
         rg, tr = rgbw, trans
         for sb in range(4):
             lo = j * NBS + sb * sub
             gd = g[:, lo:lo + sub]                          # (T, sub, 16)
-            if axis:
-                txd = xc[:, None, :] - gd[..., 0:1]         # (T, sub, TWC)
-                exf = torch.exp(-0.5 * gd[..., 2:3] * (txd * txd))
-                tyd = yr[:, None, :] - gd[..., 1:2]         # (T, sub, TH)
-                eyop = gd[..., 5:6] * torch.exp(-0.5 * gd[..., 4:5]
-                                                * (tyd * tyd))
-                a_raw = (eyop[..., :, None] * exf[..., None, :]).reshape(
-                    n_tiles, sub, TPS)
-            else:
-                dx = gx[:, None, :] - gd[..., 0:1]          # (T, sub, TPS)
-                dy = gy[:, None, :] - gd[..., 1:2]
-                e = -0.5 * (gd[..., 2:3] * dx * dx
-                            + 2.0 * gd[..., 3:4] * dx * dy
-                            + gd[..., 4:5] * dy * dy)
-                a_raw = gd[..., 5:6] * torch.exp(e)
-            a_s = torch.where(a_raw < ALPHA_CUTOFF, torch.zeros_like(a_raw),
-                              torch.clamp(a_raw, 0.0, A_MAX))
-            t_excl = torch.cat([torch.ones_like(a_s[:, :1]),
-                                torch.cumprod(1.0 - a_s, dim=1)[:, :-1]],
-                               dim=1)
+            a_s = clamp_alpha(slot_alpha(gd, gx, gy, axis)[0])
+            t_excl = exclusive_cumprod(1.0 - a_s, dim=1)
             block = torch.einsum("tsf,tsp->tfp", gd[..., 6:6 + FEAT_PAD],
                                  t_excl * a_s)              # (T, 8, TPS)
             rg = rg + tr[:, None, :] * block

@@ -3,10 +3,11 @@
 "auto" picks it) or "torch" (the whole-frame plain renderer, exact). The
 two agree to float tolerance.
 
-  accum  tiled: axis footprint -> ops/splat.splat_accumulate (separable
-         band kernels K1/K2, differentiable); torch: plain_renderer.accumulate
-  sorted tiled: binner + per-tile compositing kernel K3 (forward only);
-         torch: plain_renderer.composite_sorted
+  accum  tiled: ops/splat.splat_accumulate, the axis footprint through the
+         separable band kernels K1/K2 (differentiable), the EWA footprint
+         through K5 (forward only); torch: plain_renderer.accumulate
+  sorted tiled: binner + per-tile compositing kernels K3/K4
+         (differentiable); torch: plain_renderer.composite_sorted
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ from tpu_gaussians_torch.ops.projection import camera_z
 from tpu_gaussians_torch.ops.splat import splat_accumulate
 
 
+# EWA accumulation at or above this many gaussians takes the tile-binned
+# kernels under accum_binned="auto" (`tpu_gaussians.ops.pallas.binned.
+# BINNED_MIN_N`: the dense EWA backward's cost passes binned's near 10k).
+BINNED_MIN_N = 10_240
+
+
 def _resolve_impl(impl: str) -> str:
     return "tiled" if impl == "auto" else impl
 
@@ -43,6 +50,17 @@ def _warn_ignored(knobs: str, path: str) -> None:
         warnings.warn(msg, stacklevel=3)
 
 
+def uses_binned_accum(config: RenderConfig, n: int) -> bool:
+    """Whether the accumulation of n gaussians takes the tile-binned kernels
+    (dispatch.py:87-100): accum_binned 'on', or 'auto' with the EWA
+    footprint at n >= BINNED_MIN_N. The axis footprint's band kernels win
+    at every n, so 'auto' never bins it."""
+    if config.accum_binned == "on":
+        return True
+    return (config.accum_binned == "auto" and config.footprint != "axis"
+            and n >= BINNED_MIN_N)
+
+
 def zero_overflow_stats(device) -> Dict[str, torch.Tensor]:
     """The no-binner stats dict (the plain renderer is exact)."""
     zero = torch.zeros((), dtype=torch.int64, device=device)
@@ -56,7 +74,8 @@ def render_accum(
     return_stats: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Weighted-average mode -> (image, alpha, depth) [+ overflow stats,
-    zeros: both accumulation paths are exact]. Differentiable.
+    zeros: both accumulation paths are exact]. Differentiable, but for the
+    EWA footprint under impl='tiled' (forward only until K6 is ported).
 
     row0: render the row window [row0, row0 + config.height) of the full
     frame the camera was built for (config.proj_height); see render_sorted.
@@ -69,13 +88,14 @@ def render_accum(
         _warn_ignored("accum_cull/accum_tile_capacity",
                       f"{_resolve_impl(config.impl)} accum (dense)")
     if _resolve_impl(config.impl) == "tiled":
-        if config.footprint != "axis" or config.accum_binned == "on":
+        if uses_binned_accum(config, s.px.shape[0]):
             raise NotImplementedError(
-                "accumulation with the EWA footprint (TPU kernels K5/K6, "
-                "binned K8) or accum_binned='on' (binned K7) is ported in "
-                "slice 4; use footprint='axis' with accum_binned auto/off, "
-                "or impl='torch'")
-        acc = splat_accumulate(s, config.height, config.width, axis=True)
+                "the tile-binned accumulation (TPU kernels K7/K8; "
+                "accum_binned='on', or the EWA footprint at n >= "
+                f"{BINNED_MIN_N} under 'auto') is ported in slice 4; use "
+                "accum_binned='off', or impl='torch'")
+        acc = splat_accumulate(s, config.height, config.width,
+                               axis=config.footprint == "axis")
     else:
         acc = plain_renderer.accumulate(s, config.height, config.width,
                                         chunk=config.chunk_size)

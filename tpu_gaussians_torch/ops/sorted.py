@@ -1,4 +1,4 @@
-"""Depth-sorted compositing on 16x128 pixel tiles (forward only): the
+"""Depth-sorted compositing on 16x128 pixel tiles, with its gradient: the
 counterpart of `tpu_gaussians.ops.pallas.sorted.sorted_composite_pallas`.
 
   order: camera-space z descending (near first)
@@ -10,13 +10,13 @@ counterpart of `tpu_gaussians.ops.pallas.sorted.sorted_composite_pallas`.
 The binner (ops/binning.py) builds each tile's depth-ordered list of at
 most `band_capacity` gaussians (overflow drops the farthest); the rows of
 those lists are gathered from the packed per-gaussian table into one
-row-major (n_tiles*cap, 16) array, and `kernels.sorted_fwd.sorted_tiles`
-composites every tile: the CUDA kernel on the card, its plain twin on
-the CPU.
+row-major (n_tiles*cap, 16) array. `_SortedCore` composites every tile
+with `kernels.sorted_fwd.sorted_tiles` (K3) and differentiates it with
+`kernels.sorted_bwd.sorted_bwd` (K4) and `moment_postpass`: the CUDA
+kernels on the card, their plain twins on the CPU.
 
-This slice has no backward: sorted training (the TPU package's fused
-backward kernel) comes with the training slice, and inputs that require
-grad are refused rather than given a wrong gradient.
+The binning is integer selection and carries no gradient; the gather's
+backward (an index_add over slots) is the slot -> gaussian reduction.
 """
 
 from __future__ import annotations
@@ -25,26 +25,65 @@ from typing import Dict, Tuple
 
 import torch
 
+from tpu_gaussians_torch.kernels.sorted_bwd import sorted_bwd
 from tpu_gaussians_torch.kernels.sorted_fwd import (
     FEAT_PAD, GD_ROWS, sorted_tiles)
 from tpu_gaussians_torch.ops.binning import (
-    EXIT_T, NBS, TH, TWC, _round_up, bin_pairs_2d)
-from tpu_gaussians_torch.ops.common import SplatInputs
+    EXIT_T, K_MIN, NBS, TH, TWC, _round_up, bin_pairs_2d, k_pairs,
+    tile_rects)
+from tpu_gaussians_torch.ops.common import SplatInputs, prepare_splats
 
 
 def pack_gdata(s: SplatInputs) -> torch.Tensor:
     """Row-major packed per-gaussian data (n+1, 16): rows [px, py, ca, cb,
     cc, op, feats(8), pad]; row n is the dead slot (zero opacity, identity
-    conic)."""
+    conic). Differentiable in every field but sigma_x/y."""
     n, nf = s.feats.shape
-    packed = torch.zeros((n + 1, GD_ROWS), dtype=torch.float32,
-                         device=s.px.device)
-    packed[:n, :6] = torch.stack([s.px, s.py, s.conic_a, s.conic_b,
-                                  s.conic_c, s.op_eff], dim=1)
-    packed[:n, 6:6 + nf] = s.feats
-    packed[n, 2] = 1.0
-    packed[n, 4] = 1.0
-    return packed
+    head = torch.stack([s.px, s.py, s.conic_a, s.conic_b, s.conic_c,
+                        s.op_eff], dim=1)
+    feats = torch.nn.functional.pad(s.feats, (0, GD_ROWS - 6 - nf))
+    dead = torch.zeros((1, GD_ROWS), dtype=torch.float32, device=s.px.device)
+    dead[0, 2] = dead[0, 4] = 1.0
+    return torch.cat([torch.cat([head, feats], dim=1), dead], dim=0)
+
+
+def moment_postpass(gdense: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+    """K4's raw slot rows [Mdx, Mdy, Mxx, Mxy, Myy, M0, g_feat(8), ...] ->
+    gradients of the gdense rows (`moment_postpass_t`, sorted.py:881-901).
+    For e = -(a dx^2 + 2 b dx dy + c dy^2)/2 and w = op exp(e):
+      g_px = a Mdx + b Mdy, g_py = b Mdx + c Mdy,
+      g_{a,b,c} = -(Mxx/2, Mxy, Myy/2), g_op = M0 / op (0 where op <= 0)."""
+    a, b, c, op = gdense[:, 2], gdense[:, 3], gdense[:, 4], gdense[:, 5]
+    mdx, mdy, mxx, mxy, myy, m0 = raw[:, :6].unbind(dim=1)
+    live = op > 0
+    g_op = torch.where(live, m0 / torch.where(live, op, torch.ones_like(op)),
+                       torch.zeros_like(op))
+    head = torch.stack([a * mdx + b * mdy, b * mdx + c * mdy, -0.5 * mxx,
+                        -mxy, -0.5 * myy, g_op], dim=1)
+    return torch.cat([head, raw[:, 6:6 + FEAT_PAD],
+                      torch.zeros_like(raw[:, 6 + FEAT_PAD:])], dim=1)
+
+
+class _SortedCore(torch.autograd.Function):
+    """(acc (8, n_tiles*2048), chunks_done) of the per-tile lists through
+    K3; differentiable in gdense through K4 and the post-pass, with the
+    forward's own exit decisions (`_sorted_core`, sorted.py:1189-1220)."""
+
+    @staticmethod
+    def forward(ctx, gdense, cnt, tiles_x: int, axis: bool, exit_t: float):
+        acc, chunks = sorted_tiles(gdense, cnt, tiles_x, axis=axis,
+                                   exit_t=exit_t)
+        ctx.save_for_backward(gdense, cnt, acc, chunks)
+        ctx.tiles_x, ctx.axis = tiles_x, axis
+        ctx.mark_non_differentiable(chunks)
+        return acc, chunks
+
+    @staticmethod
+    def backward(ctx, g_acc, _):
+        gdense, cnt, acc, chunks = ctx.saved_tensors
+        raw = sorted_bwd(gdense, cnt, acc, g_acc.contiguous(), chunks,
+                         ctx.tiles_x, ctx.axis)
+        return moment_postpass(gdense, raw), None, None, None, None
 
 
 def crop_tiled_acc(acc: torch.Tensor, tiles_y: int, tiles_x: int,
@@ -66,20 +105,49 @@ def default_band_capacity(n: int, band_capacity: int = 0) -> int:
     return _round_up(band_capacity, NBS)
 
 
+def auto_pair_k(g, views: torch.Tensor, projs: torch.Tensor, width: int,
+                height: int, footprint: str = "axis") -> int:
+    """The per-gaussian tile budget for training (`auto_pair_k`,
+    sorted.py:98-130): the largest tile rect of any gaussian over every
+    training camera at the initial parameters, rounded up to a power of
+    two, at least K_MIN and at most k_pairs(n). Rects that later outgrow it
+    are clipped and counted in the binner's clipped_rect_pairs."""
+    tiles_x = _round_up(width, TWC) // TWC
+    tiles_y = _round_up(height, TH) // TH
+    with torch.no_grad():
+        counts = []
+        for view, proj in zip(views, projs):
+            s = prepare_splats(g, view, proj, width, height,
+                               footprint=footprint)
+            counts.append(tile_rects(
+                s.px, s.py, s.sigma_x, s.sigma_y, s.op_eff, tiles_x,
+                tiles_y, tiles_x * tiles_y, width, height)[4].max())
+        mx = int(torch.stack(counts).max())
+    k = 1 << max(0, (mx - 1).bit_length())              # pow2ceil(mx)
+    return int(min(max(K_MIN, k), k_pairs(g.means.shape[0])))
+
+
 def tile_lists(s: SplatInputs, z_cam: torch.Tensor, height: int, width: int,
                band_capacity: int = 0, pair_k: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor, int, int,
                           Dict[str, torch.Tensor]]:
     """Bin and gather -> (gdense (n_tiles*cap, 16), cnt (n_tiles,) int32,
-    tiles_x, tiles_y, overflow stats): the compositing kernel's inputs."""
+    tiles_x, tiles_y, overflow stats): the compositing kernel's inputs.
+    gdense is differentiable in s; the binning sees detached inputs."""
     n = s.px.shape[0]
     tiles_x = _round_up(width, TWC) // TWC
     tiles_y = _round_up(height, TH) // TH
     cap = default_band_capacity(n, band_capacity)
-    slots, cnt, stats = bin_pairs_2d(
-        s.px, s.py, s.sigma_x, s.sigma_y, s.op_eff, z_cam,
-        tiles_x, tiles_y, cap, width, height, k=pair_k)
-    return pack_gdata(s)[slots], cnt, tiles_x, tiles_y, stats
+    with torch.no_grad():
+        slots, cnt, stats = bin_pairs_2d(
+            s.px, s.py, s.sigma_x, s.sigma_y, s.op_eff, z_cam,
+            tiles_x, tiles_y, cap, width, height, k=pair_k)
+    # index_select's backward is an index_add_ of the slot rows into the
+    # gaussians' (atomics on the card). Indexing with [] would take torch's
+    # sorted index_put backward, which walks each gaussian's duplicates in
+    # one thread: the dead row n holds every empty slot.
+    gdense = torch.index_select(pack_gdata(s), 0, slots)
+    return gdense, cnt, tiles_x, tiles_y, stats
 
 
 def resolve_sorted(acc: torch.Tensor, background: torch.Tensor,
@@ -100,19 +168,14 @@ def sorted_composite(
     exit_t: float = EXIT_T, pair_k: int = 0,
 ):
     """Depth-sorted render -> (image (H,W,3), alpha (H,W), depth (H,W))
-    [+ binner overflow stats dict when return_stats].
+    [+ binner overflow stats dict when return_stats]. Differentiable in
+    every SplatInputs field but sigma_x/y, and in background.
 
     exit_t / pair_k / band_capacity are the forward-quality knobs of the
     interactive viewer preset; axis=True asserts conic b == 0 and takes
-    the kernel's factorised alpha."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*s, z_cam, background)):
-        raise RuntimeError(
-            "the tiled sorted path is forward-only in this package; its "
-            "backward comes with the training slice. Render under "
-            "torch.no_grad(), or use impl='torch' for autograd")
+    the kernels' factorised alpha (and a zero gradient for conic_b)."""
     gdense, cnt, tiles_x, tiles_y, stats = tile_lists(
         s, z_cam, height, width, band_capacity, pair_k)
-    acc, _ = sorted_tiles(gdense, cnt, tiles_x, axis=axis, exit_t=exit_t)
+    acc, _ = _SortedCore.apply(gdense, cnt, tiles_x, axis, exit_t)
     out = resolve_sorted(acc, background, tiles_y, tiles_x, height, width)
     return out + (stats,) if return_stats else out

@@ -1,17 +1,17 @@
-"""Splat accumulation for the axis footprint through the separable band
-kernels, with its gradient: the counterpart of
-`tpu_gaussians.ops.pallas.splat.splat_accumulate(axis=True)`.
+"""Splat accumulation through the band kernels: the counterpart of
+`tpu_gaussians.ops.pallas.splat.splat_accumulate`.
 
-  acc[p, :] = sum_i op_i exp(-0.5 (a dx^2 + c dy^2)) feats_i    (b == 0)
+  acc[p, :] = sum_i op_i exp(-0.5 (a dx^2 + 2 b dx dy + c dy^2)) feats_i
 
-The axis footprint's weight factorises into Ex(x) * Ey(y), so a band of R
+The axis footprint (b == 0) factorises into Ex(x) * Ey(y), so a band of R
 image rows is a sum of rank-1 products per gaussian (kernels/splat_sep.py).
 Gaussians are sorted by screen y (above SORT_MM_MAX) and grouped in blocks
 of nb; each band evaluates only the contiguous range of blocks whose
 conservative y-extent (weight >= W_CULL) reaches it. `stage` sorts and
 stages the inputs once (pad, cull mask, block ranges, packed rows);
 `_SplatSep` runs K1 forward and K2 backward on them, and finishes the
-gradient with an O(n) torch post-pass.
+gradient with an O(n) torch post-pass. The general conic (EWA) takes
+2048-pixel bands through K5 (kernels/splat_v2.py), forward only.
 
 Not ported, because they exist only for the TPU's memory: the VMEM
 capacity model and super-block streaming (`_sep_fits`, `_sep_pass_*`) and
@@ -26,6 +26,7 @@ import torch
 
 from tpu_gaussians_torch.kernels.splat_sep import (
     FEAT, GD_FEAT0, GD_ROWS, splat_sep_bwd, splat_sep_fwd)
+from tpu_gaussians_torch.kernels.splat_v2 import TP2, splat_v2_fwd
 from tpu_gaussians_torch.ops.common import SplatInputs
 
 FEAT_PAD = 8          # feats padded to 8 columns: [r, g, b, 1, z, 0, 0, 0]
@@ -150,18 +151,43 @@ def _sep_prep(px, py, ca, cb, cc, op, feats, height: int, width: int):
     return lo, cnt, gdata, nb, wp, hp, n_bands, rows
 
 
-def stage(s: SplatInputs, height: int, width: int):
-    """The gaussians in the order the kernels take them, and K1/K2's
-    inputs for that order: (s, (lo, cnt, gdata, nb, wp, hp, n_bands, rows)).
+def _v2_prep(s: SplatInputs, height: int, width: int):
+    """K5's staging (splat.py:1005-1016) of s in the order given (see
+    y_sorted): pad to the v2 block, cull mask over 2048-pixel bands, block
+    ranges, packed rows -> (lo, cnt, gdata, nb, hw_pad). Forward only."""
+    n = s.px.shape[0]
+    nb = _v2_block(n)
+    hw_pad = _round_up(height * width, TP2)
+    with torch.no_grad():
+        px_p, py_p, ca_p, cb_p, cc_p, op_p, feats_p = _pad_inputs(
+            s.px, s.py, s.conic_a, s.conic_b, s.conic_c, s.op_eff, s.feats,
+            _round_up(n, nb))
+        sy_eff = _sigma_y_from_conic(ca_p, cb_p, cc_p)
+        mask = _band_block_mask(py_p, sy_eff, op_p, hw_pad // TP2, TP2, nb,
+                                width)
+        lo, cnt = _block_ranges(mask)
+        sa, sb, sc = _scale_conic(ca_p, cb_p, cc_p)
+        gdata = _pack_gdata(px_p, py_p, sa, sb, sc, op_p, feats_p)
+    return lo, cnt, gdata, nb, hw_pad
 
-    Above SORT_MM_MAX, s is sorted by screen y, so that blocks are
-    y-coherent and each band's block range is short; the sum does not
-    depend on the order, and the gradient flows back through the gather.
-    The staging itself carries no gradient: _SplatSep's backward builds
-    the columns' gradients from K2's moments."""
+
+def y_sorted(s: SplatInputs) -> SplatInputs:
+    """s in the order the band kernels take it: above SORT_MM_MAX, sorted by
+    screen y, so that blocks are y-coherent and each band's block range is
+    short. The sum does not depend on the order, and the gradient flows
+    back through the gather."""
     if s.px.shape[0] > SORT_MM_MAX:
         order = torch.sort(s.py.detach(), stable=True).indices
         s = SplatInputs(*(t[order] for t in s))
+    return s
+
+
+def stage(s: SplatInputs, height: int, width: int):
+    """The gaussians in the order the separable kernels take them, and
+    their inputs for that order: (y_sorted(s), (lo, cnt, gdata, nb, wp, hp,
+    n_bands, rows)). The staging itself carries no gradient: _SplatSep's
+    backward builds the columns' gradients from K2's moments."""
+    s = y_sorted(s)
     with torch.no_grad():
         prep = _sep_prep(s.px, s.py, s.conic_a, s.conic_b, s.conic_c,
                          s.op_eff, s.feats, height, width)
@@ -203,15 +229,22 @@ class _SplatSep(torch.autograd.Function):
 
 def splat_accumulate(s: SplatInputs, height: int, width: int, *,
                      axis: bool) -> torch.Tensor:
-    """acc (H*W, 5) of the weighted-average mode through the separable band
-    kernels; differentiable in every SplatInputs field but sigma_x/y.
+    """acc (H*W, 5) of the weighted-average mode.
 
-    axis=True is the caller's promise that conic_b == 0; the general conic
-    (axis=False) is not ported yet."""
+    axis=True is the caller's promise that conic_b == 0: the separable
+    band kernels K1/K2, differentiable in every SplatInputs field but
+    sigma_x/y. axis=False takes any conic through the general-conic band
+    kernel K5, forward only: its gradient (K6) is not ported yet, and an
+    input that requires grad is refused rather than given none."""
     if not axis:
-        raise NotImplementedError(
-            "splat_accumulate(axis=False), the general-conic (EWA) "
-            "accumulation (TPU kernels K5/K6 and K9), is ported in slice 4")
+        if torch.is_grad_enabled() and any(t.requires_grad for t in s):
+            raise NotImplementedError(
+                "the gradient of the general-conic (EWA) accumulation (TPU "
+                "kernel K6, splat.py:_bwd_kernel_v2) is ported in slice 4; "
+                "render under torch.no_grad(), or use impl='torch'")
+        lo, cnt, gdata, nb, hw_pad = _v2_prep(y_sorted(s), height, width)
+        acc8 = splat_v2_fwd(lo, cnt, gdata, hw_pad, width, nb)
+        return acc8[:FEAT, :height * width].T
     s, prep = stage(s, height, width)
     return _SplatSep.apply(s.px, s.py, s.conic_a, s.conic_b, s.conic_c,
                            s.op_eff, s.feats, prep, height, width)
