@@ -31,7 +31,9 @@ Phases, each of which fails the run by raising:
   7. fit      cli.fit.main on cuda with the flagship recipe (example scene,
               150 iterations, --use_sh, 800 gaussians, 128x128, capacity
               3000): loss.txt has 150 lines and its last loss is under half
-              its first, N grows at iteration 80, the four artifacts exist;
+              its first, N grows at iteration 80, the four artifacts exist,
+              K1 launched exactly 901 times (6 per step and the preview),
+              K2 900 and no other kernel;
               then a torch.profiler breakdown of train steps, and the band
               kernels K1 (splat_sep_fwd) and K2 (splat_sep_bwd) against
               their twins on the fitted model's staged inputs
@@ -42,29 +44,50 @@ Phases, each of which fails the run by raising:
   9. fit sorted  cli.fit.main with the same recipe plus --max_gaussians
               4096 --footprint ewa (render_mode auto -> sorted): the checks
               of phase 7, the pair-budget line printed, K3 (sorted_fwd) and
-              K4 (sorted_bwd) launched 6 times per step and K5
-              (splat_v2_fwd) for the preview; a profile of its train steps;
-              K5 against its twin on the fitted model (the preview's
-              inputs), and K3 and K4 against theirs on its EWA tile lists
+              K4 (sorted_bwd) launched exactly 6 times per step and K5
+              (splat_v2_fwd) once, for the preview; a profile of its train
+              steps;
+              K5 and K6 against their twins on the fitted model (the
+              preview's inputs), and K3 and K4 against theirs on its EWA
+              tile lists
  10. scale sorted  100,000 alive EWA gaussians (phase 8's scene, seeded
               quaternions), 4 views at 512x512, sorted with the measured
               pair budget: 10 train steps timed, a profile; K3, then K4 on
               K3's outputs, against their twins on the binner's lists, for
               both footprints; sorted-render gradients against the plain
-              renderer on a small scene; K5 against its twin at 8,192 EWA
-              gaussians on 512x512
- 11. report   one `kernels` JSON line, the nvidia-smi line, and last
+              renderer on a small scene; K5 and K6 against their twins at
+              8,192 EWA gaussians on 512x512
+ 11. scale ewa accum  the same 100k EWA scene and views in accum mode
+              (n >= 10,240 under accum_binned "auto" -> tile-binned): 10
+              train steps timed, a profile; K8a (binned_fwd), then K8b
+              (binned_bwd) on a seeded cotangent, against their twins on
+              view 0's lists, with the binner's stats and the live slots
+ 12. binned vs dense  12,288 EWA gaussians at 512x512: render with
+              accum_binned "on" (K8a) against "off" (K5), every overflow
+              stat 0, image and alpha within rtol 1e-4 / atol 1e-5
+ 13. fit ewa accum  cli.fit.main with the recipe plus --footprint ewa
+              (capacity 3000: auto -> accum, dense): the checks of phase 7,
+              K5 launched exactly 901 times (6 per step and the preview), K6
+              (splat_v2_bwd) 900, no other kernel; a profile of its steps;
+              K5 and K6 against their twins on the fitted model
+ 14. fit ewa binned  the recipe plus --footprint ewa --max_gaussians 16384
+              --render_mode accum: the checks of phase 7, K8a launched
+              exactly 901 times and K8b 900, no other kernel, no pair
+              dropped in any step; a profile; K8a/K8b against their twins on
+              the fit's own lists
+ 15. report   one `kernels` JSON line, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
-K1 and K5 are held to rtol 1e-5 / atol 1e-5; K2 to rtol 2e-4 and atol 2e-5
-times the largest magnitude of its output column (its moments are sums of
-signed terms that cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest
-magnitude of its output column (the JAX suite's tolerance for the sorted
-backward: ctg - P_i cancels and is divided by 1 - a), and bit-identical
-across two launches, as K2. Kernel times are CUDA-event medians of 20 after
-warm-up (twins: of 5). The launch counters are set to 0 just before each
-main path (phases 4-5 for serving, the cli.fit.main calls of phases 7 and
-9 for training) and read just after: every kernel of the path must have
+K1, K5 and K8a are held to rtol 1e-5 / atol 1e-5; K2, K6 and K8b to rtol
+2e-4 and atol 2e-5 times the largest magnitude of their output column (at
+least 1; their moments are sums of signed terms that cancel); K4 to rtol
+2e-3 and atol 2e-4 times the largest magnitude of its output column (the
+JAX suite's tolerance for the sorted backward: ctg - P_i cancels and is
+divided by 1 - a); K2, K4, K6 and K8b are bit-identical across two
+launches. Kernel times are CUDA-event medians of 20 after warm-up (twins:
+of 5). The launch counters are set to 0 just before each main path
+(phases 4-5 for serving, the cli.fit.main calls of phases 7, 9, 13 and 14
+for training) and read just after: every kernel of the path must have
 launched there. It exits non-zero, printing no result, without a CUDA
 device or outside a checkout.
 """
@@ -108,10 +131,24 @@ SORTED_BWD_FLOPS_PER_EVAL = {"ewa": 66, "axis": 60}
 # f32 operations per (gaussian, pixel) pair in K5 (csrc/splat_v2_fwd.cu):
 # dx, dy, the Horner exponent (7) and 8 multiply-adds; the exp not counted.
 V2_FWD_FLOPS_PER_PAIR = 25
+# Per (gaussian, pixel) pair in K6's pixel loop (csrc/splat_v2_bwd.cu): dx,
+# dy, the Horner exponent (7), g_x (8 multiply-adds), g_e, u and v, the
+# five moment sums (8), g_featop (8 multiply-adds); the exp not counted.
+V2_BWD_FLOPS_PER_PAIR = 52
+# Per (slot, pixel) pair in K8a's pixel loop (csrc/binned_fwd.cu): dy, the
+# exponent (2 multiply-adds), op * exp, 8 multiply-adds; and in K8b's
+# (csrc/binned_bwd.cu): dx, the exponent (2 multiply-adds), op * exp, g_w
+# (8 multiply-adds), g_e, u = g_e dx and the three row sums (5), g_feat (8
+# multiply-adds). The exps are not counted.
+BINNED_FWD_FLOPS_PER_PAIR = 22
+BINNED_BWD_FLOPS_PER_PAIR = 44
 FIT_ARGS = ["--targets_dir", "assets/example_scene", "--camera_npz",
             "assets/example_scene/cameras.npz", "--iters", "150", "--use_sh",
             "--num_gaussians", "800"]
 SORTED_FIT_ARGS = ["--max_gaussians", "4096", "--footprint", "ewa"]
+EWA_ACCUM_FIT_ARGS = ["--footprint", "ewa"]
+EWA_BINNED_FIT_ARGS = ["--footprint", "ewa", "--max_gaussians", "16384",
+                       "--render_mode", "accum"]
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -529,28 +566,30 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     from tpu_gaussians_torch.kernels import (
-        sorted_bwd, sorted_fwd, splat_sep, splat_v2)
+        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v2)
 
-    for k in splat_sep.launches:
-        splat_sep.launches[k] = 0
-    sorted_fwd.launches = sorted_bwd.launches = splat_v2.launches = 0
+    for counts in (splat_sep.launches, splat_v2.launches, binned.launches):
+        for k in counts:
+            counts[k] = 0
+    sorted_fwd.launches = sorted_bwd.launches = 0
 
 
 def read_launches() -> dict:
     from tpu_gaussians_torch.kernels import (
-        sorted_bwd, sorted_fwd, splat_sep, splat_v2)
+        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v2)
 
     return {"sorted_fwd": sorted_fwd.launches,
             "sorted_bwd": sorted_bwd.launches, **splat_sep.launches,
-            "splat_v2_fwd": splat_v2.launches}
+            **splat_v2.launches, **binned.launches}
 
 
-def fit_phase(tmp: Path, name: str, extra_args, min_launches: dict,
+def fit_phase(tmp: Path, name: str, extra_args, launches_expected: dict,
               expect_line: str = "") -> dict:
     """A training main path: cli.fit.main on the card with the flagship
     recipe plus `extra_args`, launch counters from 0 just before it and
-    read just after; each kernel of `min_launches` must have launched at
-    least that often, and `expect_line` must be printed."""
+    read just after; each kernel of `launches_expected` must have launched
+    exactly that often and every other kernel never, and `expect_line`
+    must be printed."""
     import numpy as np
 
     from tpu_gaussians_torch.cli import fit as fit_cli
@@ -572,8 +611,9 @@ def fit_phase(tmp: Path, name: str, extra_args, min_launches: dict,
 
     losses = [float(x) for x in
               (out_dir / "loss.txt").read_text().splitlines()]
-    n_alive = [json.loads(line)["n_alive"] for line in
+    metrics = [json.loads(line) for line in
                (out_dir / "metrics.jsonl").read_text().splitlines()]
+    n_alive = [m["n_alive"] for m in metrics]
     check(len(losses) == 150, f"{name}: loss.txt has {len(losses)} lines")
     check(bool(np.isfinite(losses).all()) and losses[-1] < 0.5 * losses[0],
           f"{name}: loss went {losses[0]} -> {losses[-1]}: not under half")
@@ -583,9 +623,9 @@ def fit_phase(tmp: Path, name: str, extra_args, min_launches: dict,
                      "preview_view0.png"):
         check((out_dir / artifact).stat().st_size > 0,
               f"{name} wrote no {artifact}")
-    for k, least in min_launches.items():
-        check(launches[k] >= least, f"{name}: {k} launched {launches[k]} "
-              f"times in a 150-step fit (at least {least} expected)")
+    want = {k: launches_expected.get(k, 0) for k in launches}
+    check(launches == want, f"{name}: kernel launches {launches} in a "
+          f"150-step fit, expected exactly {want}")
     check(expect_line in text, f"{name} did not print {expect_line!r}")
     loop_s = float(text.split("Done in ")[1].split("s.")[0])
     views, pix = 6, 128 * 128
@@ -594,6 +634,8 @@ def fit_phase(tmp: Path, name: str, extra_args, min_launches: dict,
            "mpix_per_s": views * pix * 150 / loop_s / 1e6,
            "loss_first": losses[0], "loss_last": losses[-1],
            "n_first": n_alive[0], "n_last": n_alive[-1],
+           "binner_dropped_pairs_max": max(
+               m["binner_dropped_pairs"] for m in metrics),
            "launches": launches}
     if "sorted pair budget k=" in text:
         out["pair_k"] = int(text.split("sorted pair budget k=")[1].split()[0])
@@ -706,17 +748,20 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
     return case
 
 
-def v2_case(name: str, g, view, proj, width: int, height: int,
+def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
             reps: int = 20) -> dict:
-    """K5 against its plain twin on one view's EWA accumulation inputs,
-    staged by the render path's own ops/splat staging: error, CUDA-event
-    times and bound. Raises on a disagreement."""
+    """K5, and K6 on a seeded N(0,1) cotangent (zero beyond the frame and in
+    rows 5-7, as the backward stages it), against their plain twins on one
+    view's EWA accumulation inputs, staged by the render path's own
+    ops/splat staging: errors, K6's determinism, CUDA-event times and
+    bounds. Raises on a disagreement."""
     import torch
 
     from tpu_gaussians_torch.kernels import splat_v2
     from tpu_gaussians_torch.ops import splat
     from tpu_gaussians_torch.ops.common import prepare_splats
 
+    hw = width * height
     with torch.no_grad():
         s = prepare_splats(g, view, proj, width, height, footprint="ewa")
         lo, cnt, gdata, nb, hw_pad = splat._v2_prep(splat.y_sorted(s),
@@ -724,39 +769,189 @@ def v2_case(name: str, g, view, proj, width: int, height: int,
         args = (lo, cnt, gdata, hw_pad, width, nb)
         acc = splat_v2.splat_v2_fwd(*args)
         ref = splat_v2.v2_fwd_plain(*args)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        g8 = torch.zeros((8, hw_pad), device="cuda")
+        g8[:5, :hw] = torch.randn((5, hw), generator=gen, device="cuda")
+        bargs = (lo, cnt, gdata, g8, hw_pad, width, nb)
+        out = splat_v2.splat_v2_bwd(*bargs)
+        again = splat_v2.splat_v2_bwd(*bargs)
+        ref_b = splat_v2.v2_bwd_plain(*bargs)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(acc).all()), f"{name}: non-finite K5 sums")
         err = float((acc - ref).abs().max())
         check(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
               f"{name}: K5 disagrees with its twin (max abs err {err})")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite K6 rows")
+        check(bool(torch.equal(out, again)), f"{name}: K6 not deterministic")
+        scale = torch.clamp(ref_b.abs().amax(dim=0), min=1.0)
+        bad = (out - ref_b).abs() > 2e-4 * ref_b.abs() + 2e-5 * scale
+        err_b = float((out - ref_b).abs().max())
+        check(not bool(bad.any()),
+              f"{name}: K6 disagrees with its twin in {int(bad.sum())} "
+              f"values (max abs err {err_b})")
         k_ms = time_ms(lambda: splat_v2.splat_v2_fwd(*args), reps)
         p_ms = time_ms(lambda: splat_v2.v2_fwd_plain(*args), 5, 1)
+        kb_ms = time_ms(lambda: splat_v2.splat_v2_bwd(*bargs), reps)
+        pb_ms = time_ms(lambda: splat_v2.v2_bwd_plain(*bargs), 5, 1)
     # The least the card could take: the (gaussian, pixel) pairs that need
     # evaluating -- each band's live rows (op > 0) within its block range,
-    # times the band's pixels inside the frame -- at K5's operations each,
-    # against gdata, lo and cnt read once and the (8, hw_pad) sums written
-    # once. pairs_evaluated is what the kernel runs: every row of the range
+    # times the band's pixels inside the frame -- at K5's (K6's) operations
+    # each, against gdata, lo and cnt read once and the (8, hw_pad) sums
+    # written once (K6: g8 read once and the (n_pad, 16) rows written once).
+    # pairs_evaluated is what the kernels run: every row of the range
     # (padding and dead capacity rows included) on every pixel of the band.
     pairs = int(cnt.to(torch.int64).sum()) * nb * splat_v2.TP2
     live = (gdata[:, 5] > 0).to(torch.int64).reshape(-1, nb).sum(dim=1)
     live_csum = torch.nn.functional.pad(live.cumsum(0), (1, 0))
     lo64, cnt64 = lo.to(torch.int64), cnt.to(torch.int64)
-    band_px = torch.clamp(width * height - splat_v2.TP2 * torch.arange(
+    band_px = torch.clamp(hw - splat_v2.TP2 * torch.arange(
         lo.shape[0], device=lo.device), 0, splat_v2.TP2)
     alive_pairs = int(((live_csum[lo64 + cnt64] - live_csum[lo64])
                        * band_px).sum())
-    ops_ms = 1e3 * V2_FWD_FLOPS_PER_PAIR * alive_pairs / F32_FLOPS_PER_S
-    bytes_ms = 1e3 * (gdata.numel() * 4 + 2 * lo.numel() * 4
-                      + 8 * hw_pad * 4) / HBM_BYTES_PER_S
+    in_bytes = gdata.numel() * 4 + 2 * lo.numel() * 4
+    bounds = {}
+    for kind, flops, nbytes in (
+            ("", V2_FWD_FLOPS_PER_PAIR, in_bytes + 8 * hw_pad * 4),
+            ("bwd_", V2_BWD_FLOPS_PER_PAIR,
+             in_bytes + 8 * hw_pad * 4 + gdata.numel() * 4)):
+        ops_ms = 1e3 * flops * alive_pairs / F32_FLOPS_PER_S
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        bounds[f"{kind}bound_ms"] = max(ops_ms, bytes_ms)
+        bounds[f"{kind}bound_by"] = ("operations" if ops_ms >= bytes_ms
+                                     else "bytes")
     case = {"case": name, "n_pad": gdata.shape[0], "nb": nb,
             "width": width, "height": height, "bands": lo.shape[0],
             "pairs_evaluated": pairs, "alive_pairs": alive_pairs,
             "alive": int((gdata[:, 5] > 0).sum()), "max_abs_err": err,
             "max_abs_ref": float(ref.abs().max()),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            "ms": k_ms, "plain_ms": p_ms, "bwd_max_abs_err": err_b,
+            "bwd_max_abs_ref": float(ref_b.abs().max()),
+            "bwd_ms": kb_ms, "bwd_plain_ms": pb_ms, **bounds}
     log("v2 case " + json.dumps(case))
     return case
+
+
+def binned_case(name: str, g, view, proj, width: int, height: int,
+                seed: int, reps: int = 20) -> dict:
+    """K8a, then K8b on a seeded N(0,1) cotangent of K8a's output, against
+    their plain twins on one view's EWA lists, built by the training path's
+    own ops/binned.accum_lists: errors, K8b's determinism, CUDA-event times,
+    bounds, the binner's stats and the live slots. Raises on a
+    disagreement."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import binned as KB
+    from tpu_gaussians_torch.ops.binned import accum_lists
+    from tpu_gaussians_torch.ops.binning import NBS, TPS
+    from tpu_gaussians_torch.ops.common import prepare_splats
+
+    with torch.no_grad():
+        s = prepare_splats(g, view, proj, width, height, footprint="ewa")
+        gdense, cnt, tiles_x, _, stats = accum_lists(s, height, width)
+        acc = KB.binned_fwd(gdense, cnt, tiles_x)
+        ref = KB.binned_fwd_plain(gdense, cnt, tiles_x)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        g8 = torch.randn(acc.shape, generator=gen, device="cuda")
+        out = KB.binned_bwd(gdense, cnt, g8, tiles_x)
+        again = KB.binned_bwd(gdense, cnt, g8, tiles_x)
+        ref_b = KB.binned_bwd_plain(gdense, cnt, g8, tiles_x)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(acc).all() and torch.isfinite(out).all()),
+              f"{name}: non-finite K8 output")
+        err_f = float((acc - ref).abs().max())
+        check(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
+              f"{name}: K8a disagrees with its twin (max abs err {err_f})")
+        check(bool(torch.equal(out, again)), f"{name}: K8b not deterministic")
+        scale = torch.clamp(ref_b.abs().amax(dim=0), min=1.0)
+        bad = (out - ref_b).abs() > 2e-4 * ref_b.abs() + 2e-5 * scale
+        err_b = float((out - ref_b).abs().max())
+        check(not bool(bad.any()),
+              f"{name}: K8b disagrees with its twin in {int(bad.sum())} "
+              f"values (max abs err {err_b})")
+        times = {
+            "fwd_ms": time_ms(lambda: KB.binned_fwd(gdense, cnt, tiles_x),
+                              reps),
+            "fwd_plain_ms": time_ms(lambda: KB.binned_fwd_plain(
+                gdense, cnt, tiles_x), 5, 1),
+            "bwd_ms": time_ms(lambda: KB.binned_bwd(gdense, cnt, g8,
+                                                    tiles_x), reps),
+            "bwd_plain_ms": time_ms(lambda: KB.binned_bwd_plain(
+                gdense, cnt, g8, tiles_x), 5, 1),
+        }
+    # The least the card could take: the listed (live) slots of each tile
+    # times its 2048 pixels, at K8a's (K8b's) operations each, against the
+    # listed slots (64 B) and cnt read once and the (8, tiles*2048) sums
+    # written once (K8b: g8 read once and the (tiles*cap, 16) rows written
+    # once). slots_processed is what the kernels run: whole 512-slot chunks.
+    n_tiles = cnt.shape[0]
+    cap = gdense.shape[0] // n_tiles
+    live = int(cnt.to(torch.int64).sum())
+    processed = int(torch.clamp((cnt.to(torch.int64) + NBS - 1) // NBS * NBS,
+                                max=cap).sum())
+    base_bytes = live * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS
+    bounds = {}
+    for kind, flops, nbytes in (
+            ("fwd", BINNED_FWD_FLOPS_PER_PAIR, base_bytes),
+            ("bwd", BINNED_BWD_FLOPS_PER_PAIR,
+             base_bytes + gdense.numel() * 4)):
+        ops_ms = 1e3 * flops * live * TPS / F32_FLOPS_PER_S
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        bounds[f"{kind}_bound_ms"] = max(ops_ms, bytes_ms)
+        bounds[f"{kind}_bound_by"] = ("operations" if ops_ms >= bytes_ms
+                                      else "bytes")
+    case = {"case": name, "n": g.capacity, "width": width, "height": height,
+            "tiles": n_tiles, "cap": cap, "slots_live": live,
+            "slots_processed": processed, "max_cnt": int(cnt.max()),
+            "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b,
+            "bwd_max_abs_ref": float(ref_b.abs().max()),
+            "stats": {k: int(v) for k, v in stats.items()},
+            **times, **bounds}
+    log("binned case " + json.dumps(case))
+    return case
+
+
+def binned_dense_check(cams, side: int, seed: int) -> None:
+    """About 12,288 EWA gaussians at side x side: render(accum_binned="on",
+    K8a) against render(accum_binned="off", K5). With nothing dropped (every
+    overflow stat 0; the tile capacity raised to n if one is not) the image
+    and alpha agree within rtol 1e-4 / atol 1e-5."""
+    import numpy as np
+    import torch
+
+    from tpu_gaussians_torch.core.types import RenderConfig, make_gaussians
+    from tpu_gaussians_torch.ops.dispatch import render, render_accum
+
+    n = 12_288
+    quats = np.random.default_rng(seed + 4).normal(size=(n, 4))
+    g = make_gaussians(**scene_arrays(n, seed + 4),
+                       quats=quats.astype(np.float32), device="cuda")
+    cfg = RenderConfig(width=side, height=side, mode="accum", footprint="ewa",
+                       return_aux=True, impl="tiled")
+    c = cams[0]
+    with torch.no_grad():
+        stats = render_accum(g, c.view, c.proj, cfg.replace(
+            accum_binned="on"), return_stats=True)[3]
+        stats = {k: int(v) for k, v in stats.items()}
+        if stats["dropped_pairs"] or stats["full_tiles"]:
+            cfg = cfg.replace(accum_tile_capacity=n)
+            stats = {k: int(v) for k, v in render_accum(
+                g, c.view, c.proj, cfg.replace(accum_binned="on"),
+                return_stats=True)[3].items()}
+        check(not any(stats.values()), f"binned vs dense: the binner "
+              f"dropped work ({stats})")
+        on = render(g, c, cfg.replace(accum_binned="on"))
+        off = render(g, c, cfg.replace(accum_binned="off"))
+    errs = []
+    for a, b, what in zip(on[:2], off[:2], ("image", "alpha")):
+        check(bool(torch.isfinite(a).all()), f"binned vs dense: non-finite "
+              f"{what}")
+        errs.append(float((a - b).abs().max()))
+        check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5)),
+              f"binned vs dense: {what} disagrees (max abs err {errs[-1]})")
+    log("binned vs dense " + json.dumps({
+        "n": n, "side": side, "tile_capacity": cfg.accum_tile_capacity,
+        "stats": stats, "image_max_abs_err": errs[0],
+        "alpha_max_abs_err": errs[1]}))
 
 
 def main() -> int:
@@ -903,7 +1098,7 @@ def main() -> int:
     # the fitted model's inputs (padded to the fit's capacity, as in
     # training)
     fit = fit_phase(Path(tmp.name), "fit", [],
-                    {"splat_sep_fwd": 150, "splat_sep_bwd": 150})
+                    {"splat_sep_fwd": 901, "splat_sep_bwd": 900})
     fit_dir = Path(tmp.name) / "fit"
     g_fit = load_gaussians_npz(fit_dir / "gaussians_fitted.npz",
                                device="cuda")
@@ -958,7 +1153,7 @@ def main() -> int:
     log("fit step profile, flagship sorted "
         + json.dumps(flag_sorted_steps))
     v2_cases = [v2_case("flagship_ewa_128x128_fitted", activate(raw_fs),
-                        cams.view[0], cams.proj[0], 128, 128)]
+                        cams.view[0], cams.proj[0], 128, 128, args.seed)]
     flag_bwd_case = sorted_bwd_case(
         "flagship_ewa_128x128_fitted", activate(raw_fs), cams.view[0],
         cams.proj[0], 128, 128, "ewa", fit_s["pair_k"], args.seed)
@@ -978,6 +1173,20 @@ def main() -> int:
     scale_sorted_steps["pair_k"] = pair_k_s
     log("fit step profile, 100k 512x512 x4 sorted "
         + json.dumps(scale_sorted_steps))
+
+    # 11. at scale, EWA accumulation: the same scene and views, accum mode,
+    # n >= BINNED_MIN_N under accum_binned "auto" -> the binned K8a/K8b;
+    # K8a and K8b against their twins on view 0's lists at full size
+    ewa_accum = RenderConfig(mode="accum", footprint="ewa")
+    scale_binned_steps, state_b = train_steps(
+        raw_from_gaussians(g_e, capacity=n_s), cams_s, targets_s, masks_s,
+        steps=10, profile=3, render_config=ewa_accum)
+    log("fit step profile, 100k 512x512 x4 EWA accum (binned) "
+        + json.dumps(scale_binned_steps))
+    binned_cases = [binned_case("100k_512x512_ewa", activate(state_b.raw),
+                                cams_s.view[0], cams_s.proj[0], side, side,
+                                args.seed)]
+    del state_b
     g_trained = activate(state_e.raw)
     del state_e, raw_e, targets_s, masks_s
     bwd_cases = [sorted_bwd_case(f"100k_512x512_{fp}", g_trained,
@@ -989,8 +1198,45 @@ def main() -> int:
         **scene_arrays(8192, args.seed + 3),
         quats=np.random.default_rng(args.seed + 3).normal(
             size=(8192, 4)).astype(np.float32), device="cuda"),
-        cams_s.view[0], cams_s.proj[0], side, side))
+        cams_s.view[0], cams_s.proj[0], side, side, args.seed))
     del g_trained, g_e
+
+    # 12. binned vs dense: K8a against K5 through render at ~12k gaussians
+    binned_dense_check(cams_s, side, args.seed)
+
+    # 13. fit ewa accum: the dense EWA accumulation training main path
+    # (capacity 3000: auto -> accum, n < BINNED_MIN_N -> K5/K6), its step
+    # profile, and K5/K6 on the fitted model
+    fit_ea = fit_phase(Path(tmp.name), "fit_ewa_accum", EWA_ACCUM_FIT_ARGS,
+                       {"splat_v2_fwd": 901, "splat_v2_bwd": 900})
+    raw_ea = raw_from_gaussians(load_gaussians_npz(
+        Path(tmp.name) / "fit_ewa_accum" / "gaussians_fitted.npz",
+        device="cuda"), capacity=3000)
+    flag_ewa_steps, _ = train_steps(raw_ea, cams, targets, masks, steps=20,
+                                    profile=10, render_config=ewa_accum)
+    log("fit step profile, flagship EWA accum " + json.dumps(flag_ewa_steps))
+    v2_main = v2_case("flagship_ewa_accum_128x128_fitted", activate(raw_ea),
+                      cams.view[0], cams.proj[0], 128, 128, args.seed)
+    v2_cases.insert(0, v2_main)
+
+    # 14. fit ewa binned: capacity 16384 in accum mode -> the tile-binned
+    # K8a/K8b for training and the preview; no pair dropped
+    fit_eb = fit_phase(Path(tmp.name), "fit_ewa_binned", EWA_BINNED_FIT_ARGS,
+                       {"binned_fwd": 901, "binned_bwd": 900})
+    check(fit_eb["binner_dropped_pairs_max"] == 0,
+          f"fit_ewa_binned dropped pairs "
+          f"({fit_eb['binner_dropped_pairs_max']} in a step)")
+    raw_eb = raw_from_gaussians(load_gaussians_npz(
+        Path(tmp.name) / "fit_ewa_binned" / "gaussians_fitted.npz",
+        device="cuda"), capacity=16384)
+    flag_binned_steps, _ = train_steps(raw_eb, cams, targets, masks,
+                                       steps=20, profile=10,
+                                       render_config=ewa_accum)
+    log("fit step profile, flagship EWA binned "
+        + json.dumps(flag_binned_steps))
+    binned_cases.insert(0, binned_case(
+        "flagship_ewa_binned_128x128_fitted", activate(raw_eb), cams.view[0],
+        cams.proj[0], 128, 128, args.seed))
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"],
@@ -1033,8 +1279,29 @@ def main() -> int:
                        bwd_cases[0], grad_max_err_over_scale=max(
                            grad_errs.values())))
     kernels.append(row("splat_v2_fwd", "tpu_gaussians/ops/pallas/splat.py:452",
-                       fit_s["launches"]["splat_v2_fwd"], v2_cases,
-                       v2_cases[0]))
+                       fit_ea["launches"]["splat_v2_fwd"], v2_cases, v2_main,
+                       launches_fit_sorted_preview=fit_s["launches"][
+                           "splat_v2_fwd"]))
+    v2b = [{"case": c["case"], "ms": c["bwd_ms"],
+            "plain_ms": c["bwd_plain_ms"], "bound_ms": c["bwd_bound_ms"],
+            "bound_by": c["bwd_bound_by"],
+            "max_abs_err": c["bwd_max_abs_err"]} for c in v2_cases]
+    kernels.append(row("splat_v2_bwd", "tpu_gaussians/ops/pallas/splat.py:510",
+                       fit_ea["launches"]["splat_v2_bwd"], v2b, v2b[0]))
+    for name, kind_, line in (("binned_fwd", "fwd", 135),
+                              ("binned_bwd", "bwd", 164)):
+        bc = [{"case": c["case"], "ms": c[f"{kind_}_ms"],
+               "plain_ms": c[f"{kind_}_plain_ms"],
+               "bound_ms": c[f"{kind_}_bound_ms"],
+               "bound_by": c[f"{kind_}_bound_by"],
+               "max_abs_err": c[f"{kind_}_max_abs_err"]} for c in binned_cases]
+        kernels.append(row(name, f"tpu_gaussians/ops/pallas/binned.py:{line}",
+                           fit_eb["launches"][name], bc, bc[0]))
+    check([k["name"] for k in kernels] == [
+        "sorted_fwd", "splat_sep_fwd", "splat_sep_bwd", "sorted_bwd",
+        "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd"]
+        and all(k["launches"] > 0 for k in kernels),
+        "a kernel of the report was never launched on a main path")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -22,7 +22,13 @@ Tolerances:
   ctg - P_i is a difference of near-equal sums divided by 1 - a >= 1e-4,
   and the kernel updates T per gaussian where the twin does per 128-slot
   sub-block.
-- splat_v2_fwd (K5): rtol 1e-5 / atol 1e-5, sums of positive terms."""
+- splat_v2_fwd (K5) and binned_fwd (K8a): rtol 1e-5 / atol 1e-5, sums of
+  positive terms in another order.
+- splat_v2_bwd (K6) and binned_bwd (K8b): as K2, rtol 2e-4 and atol 2e-5
+  times the largest magnitude of the output column; bit-identical across
+  two launches.
+- EWA accumulation render gradients (K5/K6, K8a/K8b) against the plain
+  renderer: rtol 5e-4 / atol 1e-5, as the axis footprint's."""
 
 import numpy as np
 import pytest
@@ -31,7 +37,7 @@ import torch
 from tpu_gaussians_torch.core import camera as tcam
 from tpu_gaussians_torch.core.types import RenderConfig, gaussians_from_numpy
 from tpu_gaussians_torch.kernels import (
-    build, sorted_bwd, sorted_fwd, splat_sep, splat_v2)
+    binned, build, sorted_bwd, sorted_fwd, splat_sep, splat_v2)
 from tpu_gaussians_torch.ops import splat as tsplat
 from tpu_gaussians_torch.ops.common import SplatInputs
 from tpu_gaussians_torch.ops.dispatch import render
@@ -213,7 +219,8 @@ def test_splat_sep_kernels_match_plain_twins(cuda, case):
 def test_build_all_builds_every_kernel(cuda):
     build.build_all()
     for name in ("sorted_fwd", "sorted_bwd", "splat_sep_fwd",
-                 "splat_sep_bwd", "splat_v2_fwd"):
+                 "splat_sep_bwd", "splat_v2_fwd", "splat_v2_bwd",
+                 "binned_fwd", "binned_bwd"):
         assert name in build.KERNELS and build.library_path(name).exists()
 
 
@@ -310,13 +317,98 @@ def test_splat_v2_kernel_matches_plain_twin(cuda, case):
         tsplat.y_sorted(splat_inputs(cols, cuda)), height, width)
     if case == "ragged_n":
         assert n % nb != 0
-    before = splat_v2.launches
+    before = splat_v2.launches["splat_v2_fwd"]
     acc = splat_v2.splat_v2_fwd(lo, cnt, gdata, hw_pad, width, nb)
     torch.cuda.synchronize()
-    assert splat_v2.launches == before + 1
+    assert splat_v2.launches["splat_v2_fwd"] == before + 1
     ref = splat_v2.v2_fwd_plain(lo, cnt, gdata, hw_pad, width, nb)
     np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(V2_CASES))
+def test_splat_v2_bwd_kernel_matches_plain_twin(cuda, case):
+    """K6 on a seeded cotangent, zero beyond the frame and in rows 5-7."""
+    kw = V2_CASES[case]
+    n, height, width = kw["n"], kw["height"], kw["width"]
+    cols = list(synthetic_splats(n, height, width, seed=4))
+    rng = np.random.default_rng(5)
+    cols[3] = (rng.uniform(-0.9, 0.9, n) * np.sqrt(cols[2] * cols[4])
+               ).astype(np.float32)
+    lo, cnt, gdata, nb, hw_pad = tsplat._v2_prep(
+        tsplat.y_sorted(splat_inputs(cols, cuda)), height, width)
+    g8 = torch.zeros((8, hw_pad), device=cuda)
+    g8[:5, :height * width] = torch.randn(
+        (5, height * width), generator=torch.Generator().manual_seed(7)).to(
+            cuda)
+    before = splat_v2.launches["splat_v2_bwd"]
+    out = splat_v2.splat_v2_bwd(lo, cnt, gdata, g8, hw_pad, width, nb)
+    again = splat_v2.splat_v2_bwd(lo, cnt, gdata, g8, hw_pad, width, nb)
+    torch.cuda.synchronize()
+    assert splat_v2.launches["splat_v2_bwd"] == before + 2
+    assert torch.equal(out, again)          # deterministic: no atomics
+    ref = splat_v2.v2_bwd_plain(lo, cnt, gdata, g8, hw_pad, width, nb)
+    assert_moments_close(out.cpu(), ref.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cnt", [(1024, 600, 0, 300), (1, 512, 513, 1024)],
+                         ids=["full_partial_empty_short", "chunk_edges"])
+def test_binned_kernels_match_plain_twins(cuda, cnt):
+    """K8a and K8b on lists with a tile at cap, one empty, and counts on
+    either side of a 512-slot chunk edge."""
+    gdense, cnt_t = synthetic_lists(False, device=cuda, cnt=cnt)
+    before = dict(binned.launches)
+    acc = binned.binned_fwd(gdense, cnt_t, TILES_X)
+    g8 = torch.randn(acc.shape, generator=torch.Generator().manual_seed(8)
+                     ).to(cuda)
+    out = binned.binned_bwd(gdense, cnt_t, g8, TILES_X)
+    again = binned.binned_bwd(gdense, cnt_t, g8, TILES_X)
+    torch.cuda.synchronize()
+    assert binned.launches == {"binned_fwd": before["binned_fwd"] + 1,
+                               "binned_bwd": before["binned_bwd"] + 2}
+    assert torch.equal(out, again)          # deterministic: no atomics
+    ref = binned.binned_fwd_plain(gdense, cnt_t, TILES_X)
+    np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    ref_b = binned.binned_bwd_plain(gdense, cnt_t, g8, TILES_X)
+    assert_moments_close(out.cpu(), ref_b.cpu())
+    rows = out.reshape(4, CAP, 16).cpu()
+    for t, c in enumerate(cnt):              # chunks at or past cnt: zero
+        assert not rows[t, -(-c // 512) * 512:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binned_mode", ["off", "on"])
+def test_ewa_accum_render_grads_match_plain_renderer(cuda, binned_mode):
+    """render(mode="accum", footprint="ewa") values and gradients: tiled
+    (K5/K6, or K8a/K8b under accum_binned "on") against the plain renderer,
+    on the card, on a frame of ragged tiles and bands."""
+    rng = np.random.default_rng(4)
+    n, w, h = 3000, 200, 72
+    arr = dict(
+        means=rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32),
+        scales=rng.uniform(0.01, 0.06, (n, 3)).astype(np.float32),
+        opacities=rng.uniform(0.1, 0.9, (n,)).astype(np.float32),
+        colors=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        quats=rng.normal(size=(n, 4)).astype(np.float32))
+    target = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(
+        np.float32)).to(cuda)
+    c = tcam.orbit_cameras(3, w, h, device=cuda)[1]
+    cfg = RenderConfig(width=w, height=h, mode="accum", footprint="ewa",
+                       return_aux=True, accum_binned=binned_mode)
+    outs = {}
+    for impl in ("tiled", "torch"):
+        g = gaussians_from_numpy(arr, device=cuda)
+        leaves = [t.requires_grad_(True) for t in (
+            g.means, g.scales, g.opacities, g.colors, g.quats)]
+        img, alpha, _ = render(g, c, cfg.replace(impl=impl))
+        (img - target).abs().mean().backward()
+        outs[impl] = [img.detach(), alpha.detach()] + [t.grad for t in leaves]
+    for a, b in zip(outs["tiled"], outs["torch"]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=5e-4, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -329,7 +329,7 @@ def test_fit_refuses_unported_options_and_missing_card():
     for kw, match in ((dict(num_view_shards=2), "parallel"),
                       (dict(checkpoint_every=5), "checkpoint"),
                       (dict(resume=True), "checkpoint"),
-                      (dict(footprint="ewa"), "slice 4")):
+                      (dict(accum_binned="on"), "slice 5")):
         cfg = tconfig.FitConfig(width=16, height=16, iters=1,
                                 num_gaussians=10, max_gaussians=16, **kw)
         with pytest.raises(NotImplementedError, match=match):

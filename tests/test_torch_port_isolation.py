@@ -39,7 +39,9 @@ def test_port_files_exist():
                      "tpu_gaussians_torch/cli/fit.py",
                      "tpu_gaussians_torch/kernels/splat_sep.py",
                      "tpu_gaussians_torch/kernels/sorted_bwd.py",
-                     "tpu_gaussians_torch/kernels/splat_v2.py"):
+                     "tpu_gaussians_torch/kernels/splat_v2.py",
+                     "tpu_gaussians_torch/kernels/binned.py",
+                     "tpu_gaussians_torch/ops/binned.py"):
         assert expected in names
 
 

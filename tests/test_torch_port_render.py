@@ -122,8 +122,7 @@ def test_return_stats_and_row_window_match_pallas():
 
 def test_tiled_path_refuses_grad_and_accum_mode():
     """The tiled sorted path has its backward (K4): its gradients equal the
-    plain renderer's. EWA accumulation renders forward (K5) and refuses
-    only a gradient (K6)."""
+    plain renderer's. So has EWA accumulation (K5 forward, K6 backward)."""
     _, tg = scene(50, 4)
     tc = tcam.orbit_cameras(1, 64, 32, device="cpu")
     cfg = TConfig(width=64, height=32, mode="sorted", impl="tiled")
@@ -142,6 +141,11 @@ def test_tiled_path_refuses_grad_and_accum_mode():
         img = tdispatch.render(tg, tc, ewa)
         ref = tdispatch.render(tg, tc, ewa.replace(impl="torch"))
     np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
-    g = tg.replace(means=tg.means.clone().requires_grad_(True))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tdispatch.render(g, tc, ewa)
+    for impl in ("tiled", "torch"):
+        g = tg.replace(means=tg.means.clone().requires_grad_(True))
+        tdispatch.render(g, tc, ewa.replace(impl=impl)).sum().backward()
+        grads[impl] = g.means.grad
+    assert grads["tiled"].any()
+    np.testing.assert_allclose(grads["tiled"].numpy(), grads["torch"].numpy(),
+                               rtol=5e-4,
+                               atol=1e-5 * float(grads["torch"].abs().max()))

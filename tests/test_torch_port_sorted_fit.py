@@ -2,7 +2,7 @@
 `tpu_gaussians_torch`'s `auto_pair_k`, the EWA sorted fit, the depth aux of
 the sorted path, K5's plain twin and render(mode="accum", footprint="ewa")
 against `tpu_gaussians` (its Pallas kernels in interpret mode on the CPU)
-on identical numpy inputs; and the trainer's up-front refusals.
+on identical numpy inputs; and the trainer's up-front refusal.
 
 Tolerances: the fit's loss curve rtol 1e-3 and its N exact (as the
 accumulation fit in tests/test_torch_port_fit.py); depth value rtol/atol
@@ -201,9 +201,11 @@ def test_v2_twin_and_ewa_accumulation_match_jax(n, height, width):
     np.testing.assert_allclose(acc.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
 
+    # differentiable since K6: the gradient reaches px through the y-sort
     s_grad = s._replace(px=s.px.clone().requires_grad_(True))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TS.splat_accumulate(s_grad, height, width, axis=False)
+    TS.splat_accumulate(s_grad, height, width, axis=False).sum().backward()
+    assert bool(torch.isfinite(s_grad.px.grad).all())
+    assert bool(s_grad.px.grad.any())
 
 
 def jcommon_inputs(cols):
@@ -231,22 +233,28 @@ def test_ewa_accum_render_matches_jax(n):
 
 
 def test_trainer_refuses_unported_kernels_up_front():
-    """EWA accumulation training (K6) and an EWA fit whose preview would
-    take the binned accumulation (K7/K8) are refused before any step."""
+    """EWA accumulation training, dense (K5/K6) or tile-binned (K8), runs;
+    only the axis footprint's binned accumulation (K7, accum mode under
+    --accum_binned on) is refused before any step, naming slice 5."""
     targets = np.zeros((1, 16, 16, 3), np.float32)
     cams = tcam.orbit_cameras(1, 16, 16, device="cpu")
-    for kw, match in ((dict(footprint="ewa"), "K6"),
-                      (dict(footprint="ewa", max_gaussians=10_240),
-                       "--accum_binned off"),
-                      (dict(accum_binned="on"), "--accum_binned off")):
+    for kw in (dict(footprint="ewa"),
+               dict(footprint="ewa", max_gaussians=10_240,
+                    render_mode="accum"),
+               dict(footprint="ewa", accum_binned="on"),
+               dict(accum_binned="on", render_mode="sorted")):
         cfg = tconfig.FitConfig(width=16, height=16, iters=1,
                                 num_gaussians=10, **{"max_gaussians": 16,
                                                      **kw})
-        with pytest.raises(NotImplementedError, match="slice 4") as err:
-            ttrainer.fit(cfg, targets, cams, device="cpu")
-        assert match in str(err.value)
+        res = ttrainer.fit(cfg, targets, cams, device="cpu")
+        assert len(res.loss_log) == 1 and np.isfinite(res.loss_log).all()
     cfg = tconfig.FitConfig(width=16, height=16, iters=1, num_gaussians=10,
-                            max_gaussians=16, footprint="ewa", impl="torch")
+                            max_gaussians=16, accum_binned="on")
+    with pytest.raises(NotImplementedError, match="slice 5") as err:
+        ttrainer.fit(cfg, targets, cams, device="cpu")
+    assert "K7" in str(err.value)
+    cfg = tconfig.FitConfig(width=16, height=16, iters=1, num_gaussians=10,
+                            max_gaussians=16, accum_binned="on", impl="torch")
     assert len(ttrainer.fit(cfg, targets, cams, device="cpu").loss_log) == 1
 
 

@@ -18,6 +18,10 @@ Tolerances:
   atol 1e-4 (test_pallas_parity.py:67-80).
 """
 
+import contextlib
+import ctypes
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -161,7 +165,9 @@ def test_splat_accumulate_values_and_grads_match_jax(n, height, width):
 
 def test_general_conic_accumulation_is_refused():
     """splat_accumulate(axis=False) is K5's forward, equal to JAX's; its
-    gradient (K6) is refused."""
+    gradient in px, once refused, now comes through K6 (its twin here)
+    and equals JAX's (tests/test_torch_port_ewa_accum.py holds every
+    field)."""
     cols = list(synthetic_splats(50, 16, 16))
     cols[3] = (0.5 * np.sqrt(cols[2] * cols[4])).astype(np.float32)
     s = tcommon.SplatInputs(*map(torch.from_numpy, cols[:5]),
@@ -171,15 +177,20 @@ def test_general_conic_accumulation_is_refused():
     with torch.no_grad():
         acc = TS.splat_accumulate(s, 16, 16, axis=False)
     px, py, ca, cb, cc, op, feats = map(jnp.asarray, cols)
-    ref = JS.splat_accumulate(jcommon.SplatInputs(
-        px=px, py=py, conic_a=ca, conic_b=cb, conic_c=cc,
-        sigma_x=jnp.ones(50), sigma_y=jnp.ones(50), op_eff=op, feats=feats),
-        16, 16, axis=False)
-    np.testing.assert_allclose(acc.numpy(), np.asarray(ref), rtol=1e-5,
+
+    def j_acc(px):
+        return JS.splat_accumulate(jcommon.SplatInputs(
+            px=px, py=py, conic_a=ca, conic_b=cb, conic_c=cc,
+            sigma_x=jnp.ones(50), sigma_y=jnp.ones(50), op_eff=op,
+            feats=feats), 16, 16, axis=False)
+
+    np.testing.assert_allclose(acc.numpy(), np.asarray(j_acc(px)), rtol=1e-5,
                                atol=1e-5)
     s = s._replace(px=s.px.clone().requires_grad_(True))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TS.splat_accumulate(s, 16, 16, axis=False)
+    TS.splat_accumulate(s, 16, 16, axis=False)[:, :3].sum().backward()
+    want = np.asarray(jax.grad(lambda x: jnp.sum(j_acc(x)[:, :3]))(px))
+    np.testing.assert_allclose(s.px.grad.numpy(), want, rtol=2e-4,
+                               atol=2e-5 * max(1.0, float(np.abs(want).max())))
 
 
 def test_wrappers_take_plain_twins_on_cpu_only():
@@ -213,10 +224,41 @@ def test_kernel_builds_need_nvcc():
             "/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc present: this checks the no-toolchain refusal")
     for name in ("splat_sep_fwd", "splat_sep_bwd", "sorted_bwd",
-                 "splat_v2_fwd"):
+                 "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd"):
         assert name in build.KERNELS
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build_all((name,))
+
+
+def test_launch_passes_pointers_scalars_and_stream(monkeypatch):
+    """build.launch, which every wrapper launches through, passes tensors
+    as device pointers, Python floats as C floats and other scalars as C
+    ints, then the current stream; a non-zero CUDA error raises."""
+    calls, errs = [], [0]
+
+    def fn(*args):
+        calls.append(args)
+        return errs[0]
+
+    monkeypatch.setattr(build, "load", lambda name: types.SimpleNamespace(
+        **{f"{name}_launch": fn}))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=4096))
+    a, b = torch.zeros(4), torch.zeros(2, dtype=torch.int32)
+    build.launch("k", (a, b), 3, np.int64(5), 0.25, True)
+    (args,) = calls
+    assert [type(x) for x in args] == (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    assert [x.value for x in args] == [a.data_ptr(), b.data_ptr(), 3, 5,
+                                       0.25, 1, 4096]
+    assert fn.restype is ctypes.c_int
+    errs[0] = 700
+    with pytest.raises(RuntimeError, match="k_launch failed with CUDA "
+                                           "error 700"):
+        build.launch("k", (a,))
 
 
 @pytest.mark.parametrize("impl,sh", [("tiled", False), ("tiled", True),
@@ -254,20 +296,24 @@ def test_accum_render_batched_and_stats_match_jax():
 
 
 def test_tiled_accum_refuses_unported_kernels():
-    """EWA accumulation below BINNED_MIN_N renders through K5; the binned
-    kernels (accum_binned='on', or EWA at n >= BINNED_MIN_N under 'auto')
-    are refused."""
+    """EWA accumulation renders through K5 below BINNED_MIN_N and through
+    the binned K8a under accum_binned='on'; the axis footprint's binned
+    kernels (K7, accum_binned='on') are refused, naming slice 5."""
     _, tg = scene(50, 7)
     c = tcam.orbit_cameras(1, 64, 32, device="cpu")
     cfg = TConfig(width=64, height=32, mode="accum", impl="tiled")
-    with torch.no_grad():
-        img = tdispatch.render(tg, c, cfg.replace(footprint="ewa"))
     # the plain renderer takes either footprint
     ref = tdispatch.render(tg, c, cfg.replace(footprint="ewa", impl="torch"))
-    assert img.shape == (1, 32, 64, 3) and bool(torch.isfinite(img).all())
-    np.testing.assert_allclose(img.numpy(), ref.detach().numpy(), rtol=1e-5,
-                               atol=1e-5)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    # dense K5 at the plain renderer's 1e-5; binned K8a at
+    # tests/test_binned_accum.py's 1e-4
+    for binned, rtol in (("auto", 1e-5), ("on", 1e-4)):
+        with torch.no_grad():
+            img = tdispatch.render(tg, c, cfg.replace(footprint="ewa",
+                                                      accum_binned=binned))
+        assert img.shape == (1, 32, 64, 3) and bool(torch.isfinite(img).all())
+        np.testing.assert_allclose(img.numpy(), ref.detach().numpy(),
+                                   rtol=rtol, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="K7.*slice 5"):
         tdispatch.render(tg, c, cfg.replace(accum_binned="on"))
     assert tdispatch.uses_binned_accum(cfg.replace(footprint="ewa"),
                                        tdispatch.BINNED_MIN_N)

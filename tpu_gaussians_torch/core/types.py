@@ -147,10 +147,12 @@ class RenderConfig:
                  counterpart of the JAX package's "jnp"
       "tiled"  — tile binner + per-tile compositing kernel, the
                  counterpart of "pallas"
-    The sorted_* knobs act on the tiled path only (see ops/sorted.py);
-    accum_binned="on" is refused until the binned kernels are ported, and
-    accum_tile_capacity/accum_cull are kept for schema parity with the
-    JAX package.
+    The sorted_* knobs act on the tiled path only (see ops/sorted.py).
+    accum_binned picks the accumulation kernels of the tiled path: "auto"
+    bins EWA at n >= ops.binned.BINNED_MIN_N, "on" always (the axis
+    footprint's binned kernels, K7, are not ported yet and raise), "off"
+    never. accum_tile_capacity (0 = auto) and accum_cull ("exact": the
+    W_CULL extent; "alpha": the 1e-5 extent) act on the binned path only.
     """
 
     width: int = 800

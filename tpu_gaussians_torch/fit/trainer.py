@@ -33,7 +33,7 @@ from tpu_gaussians_torch.io import image as im
 from tpu_gaussians_torch.io.npz import load_gaussians_npz, save_raw_npz
 from tpu_gaussians_torch.models.gaussian_model import (
     RawParams, activate, init_params, raw_from_gaussians)
-from tpu_gaussians_torch.ops.dispatch import render, uses_binned_accum
+from tpu_gaussians_torch.ops.dispatch import render
 from tpu_gaussians_torch.ops.sorted import auto_pair_k
 from tpu_gaussians_torch.utils.config import FitConfig, resolve_render_mode
 
@@ -84,26 +84,17 @@ def _refuse_unported(config: FitConfig) -> None:
             "checkpoint slice")
 
 
-def _refuse_unported_kernels(config: FitConfig, mode: str,
-                             capacity: int) -> None:
-    """Refuse, before the first step, a fit whose training or end-of-fit
-    preview would need a kernel that is not ported yet."""
-    if config.impl == "torch":
-        return
-    if mode == "accum" and config.footprint == "ewa":
+def _refuse_unported_kernels(config: FitConfig, mode: str) -> None:
+    """Refuse, before the first step, a fit that would train through a
+    kernel that is not ported yet: the axis footprint's tile-binned
+    accumulation (TPU K7, accum mode under --accum_binned on)."""
+    if (config.impl != "torch" and mode == "accum"
+            and config.footprint == "axis" and config.accum_binned == "on"):
         raise NotImplementedError(
-            "accumulation training with the EWA footprint needs the "
-            "gradient of the general-conic accumulation (TPU kernel K6), "
-            "ported in slice 4; train sorted (--render_mode sorted, or "
-            "capacity >= 4096 under auto), or use --impl torch")
-    if uses_binned_accum(RenderConfig(footprint=config.footprint,
-                                      accum_binned=config.accum_binned),
-                         capacity):
-        raise NotImplementedError(
-            f"the end-of-fit preview (accum mode, {capacity} gaussians) "
-            "would render through the tile-binned accumulation (TPU "
-            "kernels K7/K8), ported in slice 4; pass --accum_binned off "
-            "for the dense band kernels, or use --impl torch")
+            "accumulation training of the axis footprint under "
+            "--accum_binned on needs the separable tile-binned kernels (TPU "
+            "K7a/K7b), ported in slice 5; use --accum_binned auto or off, "
+            "--footprint ewa, or --impl torch")
 
 
 def fit(
@@ -158,7 +149,7 @@ def fit(
             return torch.randn((capacity, 3), generator=gen).to(dev)
 
     mode = resolve_render_mode(config, capacity)
-    _refuse_unported_kernels(config, mode, capacity)
+    _refuse_unported_kernels(config, mode)
     pair_k = config.sorted_pair_k
     if mode == "sorted" and pair_k == 0 and config.impl != "torch":
         # The budget measured at init (the generic k_pairs formula
@@ -294,14 +285,8 @@ def write_artifacts(out_dir: Path, result: FitResult,
     (out_dir / "loss.txt").write_text(
         "\n".join(f"{v:.8f}" for v in result.loss_log), encoding="utf-8")
     cam0 = result.cameras[0] if result.cameras.batched else result.cameras
-    # Unlike the JAX trainer's preview (which always takes accum_binned
-    # "auto"), this one takes the fit's accum_binned, so that --accum_binned
-    # off keeps an EWA preview on the dense K5 at any capacity while the
-    # binned accumulation kernels (K7/K8) are not ported. The image is the
-    # same sum by another route; the difference goes when K7/K8 land.
     render_config = RenderConfig(width=config.width, height=config.height,
-                                 impl=config.impl, footprint=config.footprint,
-                                 accum_binned=config.accum_binned)
+                                 impl=config.impl, footprint=config.footprint)
     with torch.no_grad():
         pred0 = render(activate(result.raw), cam0, render_config)
     im.save_image_png(out_dir / "preview_view0.png", pred0.cpu().numpy())

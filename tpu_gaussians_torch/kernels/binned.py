@@ -1,0 +1,139 @@
+"""Tile-binned general-conic accumulation, forward and backward: the CUDA
+kernels' wrappers and their plain twins.
+
+`binned_fwd` launches `csrc/binned_fwd.cu` (K8a, the replacement of the TPU
+kernel `tpu_gaussians/ops/pallas/binned.py:_binned_fwd_kernel`) and
+`binned_bwd` launches `csrc/binned_bwd.cu` (K8b, replacing
+`_binned_bwd_kernel`) for CUDA tensors; for CPU tensors each runs its plain
+twin (`binned_fwd_plain`, `binned_bwd_plain`), the TPU grid's algorithm in
+torch: per tile, per 512-slot chunk below the tile's count. Neither falls
+back from one to the other.
+
+Both take the per-tile slot lists row-major, gdense (n_tiles*cap, 16) f32
+with rows [px, py, conic_a, conic_b, conic_c, op, feats(8), 0, 0] (the
+layout of `ops/sorted.pack_gdata`, not JAX's transposed (16, S)), and cnt
+(n_tiles,) int32. With dx = x - px, dy = y - py at pixel centres (+0.5)
+and, with the conic unscaled and no cutoff,
+  w = op exp(-0.5 (a dx^2 + 2 b dx dy + c dy^2)):
+  K8a -> acc (8, n_tiles*2048): acc[f, p] = sum_s feats_f w, pixel l of
+     tile t at column t*2048 + l (l = row*128 + col);
+  K8b takes g8 (8, n_tiles*2048), the cotangent of acc, and returns raw
+     (n_tiles*cap, 16) rows [Mdx, Mdy, Mxx, Mxy, Myy, M0, g_feat(8), 0, 0]:
+     with g_e = w sum_f g8[f, p] feats_f, over the tile's pixels,
+     M0 = sum g_e, Mdx = sum g_e dx, ..., Myy = sum g_e dy^2,
+     g_feat_f = sum_p g8[f, p] w.
+Chunk j of tile t is processed iff j*512 < cnt[t]; K8b's rows of other
+chunks are zero. `ops/sorted.moment_postpass` turns the raw rows into
+gradients of the gdense rows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_gaussians_torch.kernels import build
+from tpu_gaussians_torch.kernels.sorted_fwd import (
+    FEAT_PAD, GD_ROWS, _check, tile_pixels)
+from tpu_gaussians_torch.kernels.splat_v2 import EXP_FLOOR, check_g8
+from tpu_gaussians_torch.ops.binning import NBS, TPS
+
+SUB = 128   # slots per sub-block of the twins (bounds their temporaries)
+
+launches = {"binned_fwd": 0, "binned_bwd": 0}   # kernel launches
+
+
+def _sub_blocks(cnt: torch.Tensor, cap: int):
+    """(live tiles, first slot) of each SUB-slot sub-block of each chunk
+    that some tile processes: chunk j of tile t iff j*NBS < cnt[t]."""
+    for j in range(cap // NBS):
+        live = torch.nonzero(j * NBS < cnt).flatten()
+        if live.numel() == 0:
+            break
+        for lo in range(j * NBS, (j + 1) * NBS, SUB):
+            yield live, lo
+
+
+def _weights(gd: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor):
+    """w, dx, dy (T, m, TPS) of slot rows gd (T, m, 16) at the tiles'
+    pixels gx, gy (T, TPS), with the arithmetic of `_binned_fwd_kernel`
+    (binned.py:146-155): no cutoff. The exponent is floored at EXP_FLOOR
+    for the CPU's exp (see kernels/splat_v2.py)."""
+    dx = gx[:, None, :] - gd[..., 0:1]
+    dy = gy[:, None, :] - gd[..., 1:2]
+    e = -0.5 * (gd[..., 2:3] * dx * dx + 2.0 * gd[..., 3:4] * dx * dy
+                + gd[..., 4:5] * dy * dy)
+    return gd[..., 5:6] * torch.exp(torch.clamp(e, min=EXP_FLOOR)), dx, dy
+
+
+def binned_fwd_plain(gdense: torch.Tensor, cnt: torch.Tensor,
+                     tiles_x: int) -> torch.Tensor:
+    """K8a's algorithm in torch, vectorised over the tiles that process
+    each chunk: per 128-slot sub-block, w and one f32 product with the
+    feature rows added into the tiles' sums."""
+    n_tiles, cap = _check(gdense, cnt)
+    g = gdense.reshape(n_tiles, cap, GD_ROWS)
+    gx, gy = tile_pixels(n_tiles, tiles_x, gdense.device)
+    acc = torch.zeros((n_tiles, FEAT_PAD, TPS), dtype=torch.float32,
+                      device=gdense.device)
+    for live, lo in _sub_blocks(cnt, cap):
+        gd = g[live, lo:lo + SUB]
+        w, _, _ = _weights(gd, gx[live], gy[live])
+        acc[live] += torch.einsum("tsf,tsp->tfp", gd[..., 6:6 + FEAT_PAD], w)
+    return acc.permute(1, 0, 2).reshape(FEAT_PAD, n_tiles * TPS)
+
+
+def binned_bwd_plain(gdense: torch.Tensor, cnt: torch.Tensor,
+                     g8: torch.Tensor, tiles_x: int) -> torch.Tensor:
+    """K8b's algorithm in torch (`_binned_bwd_kernel`, binned.py:164-208):
+    per 128-slot sub-block of the processed chunks, g_w = feats . g8 and
+    g_feat = w g8 as f32 products, and the moments of g_e = w g_w."""
+    n_tiles, cap = _check(gdense, cnt)
+    check_g8(g8, gdense, n_tiles * TPS)
+    g = gdense.reshape(n_tiles, cap, GD_ROWS)
+    gx, gy = tile_pixels(n_tiles, tiles_x, gdense.device)
+    g8t = g8.reshape(FEAT_PAD, n_tiles, TPS).permute(1, 0, 2)   # (T, 8, TPS)
+    out = torch.zeros((n_tiles, cap, GD_ROWS), dtype=torch.float32,
+                      device=gdense.device)
+    for live, lo in _sub_blocks(cnt, cap):
+        gd = g[live, lo:lo + SUB]
+        gt = g8t[live]
+        w, dx, dy = _weights(gd, gx[live], gy[live])
+        g_e = w * torch.einsum("tsf,tfp->tsp", gd[..., 6:6 + FEAT_PAD], gt)
+        u, v = g_e * dx, g_e * dy
+        out[live, lo:lo + SUB, :6 + FEAT_PAD] = torch.cat([
+            torch.stack([u.sum(2), v.sum(2), (u * dx).sum(2), (u * dy).sum(2),
+                         (v * dy).sum(2), g_e.sum(2)], dim=2),
+            torch.einsum("tsp,tfp->tsf", w, gt)], dim=2)
+    return out.reshape(n_tiles * cap, GD_ROWS)
+
+
+def _launch(name: str, args, out: torch.Tensor, tiles_x: int, n_tiles: int,
+            cap: int) -> None:
+    build.launch(name, (*args, out), tiles_x, n_tiles, cap)
+    launches[name] += 1
+
+
+def binned_fwd(gdense: torch.Tensor, cnt: torch.Tensor,
+               tiles_x: int) -> torch.Tensor:
+    """K8a -> acc (8, n_tiles*2048): the CUDA kernel for CUDA tensors, the
+    plain twin for CPU tensors."""
+    n_tiles, cap = _check(gdense, cnt)
+    if not build.on_cuda("binned_fwd", gdense):
+        return binned_fwd_plain(gdense, cnt, tiles_x)
+    out = torch.empty((FEAT_PAD, n_tiles * TPS), dtype=torch.float32,
+                      device=gdense.device)
+    _launch("binned_fwd", (gdense, cnt), out, tiles_x, n_tiles, cap)
+    return out
+
+
+def binned_bwd(gdense: torch.Tensor, cnt: torch.Tensor, g8: torch.Tensor,
+               tiles_x: int) -> torch.Tensor:
+    """K8b -> raw (n_tiles*cap, 16) moment rows: the CUDA kernel for CUDA
+    tensors, the plain twin for CPU tensors."""
+    n_tiles, cap = _check(gdense, cnt)
+    check_g8(g8, gdense, n_tiles * TPS)
+    if not build.on_cuda("binned_bwd", gdense):
+        return binned_bwd_plain(gdense, cnt, g8, tiles_x)
+    out = torch.empty_like(gdense)
+    _launch("binned_bwd", (gdense, cnt, g8), out, tiles_x, n_tiles, cap)
+    return out

@@ -10,6 +10,8 @@ Libraries are built at first use into `tpu_gaussians_torch/_build/`, keyed
 by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once. `build_all` starts one nvcc per source, all
 together. Nothing is built or loaded when this module is imported.
+`launch` calls a library's launcher on the current CUDA stream; every
+kernel wrapper launches through it.
 """
 
 from __future__ import annotations
@@ -20,13 +22,15 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
+
+import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNELS = ("sorted_fwd", "sorted_bwd", "splat_sep_fwd", "splat_sep_bwd",
-           "splat_v2_fwd")
+           "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -83,3 +87,35 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True if kernel `name` is to be launched on `tensors` (CUDA, 16-byte
+    aligned: the kernels load float4), False for CPU tensors (the plain
+    twin's case); raises on any other device or a misaligned tensor."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, got {dev}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned (the "
+                         "kernel loads float4)")
+    return True
+
+
+def launch(name: str, tensors: Sequence[torch.Tensor], *scalars) -> None:
+    """Call `<name>_launch(pointers..., scalars..., stream)` of kernel
+    `name`'s library on the current stream of tensors[0]'s device: each
+    tensor passes as its device pointer, a Python float as a C float and
+    any other scalar as a C int. Raises on a non-zero CUDA error."""
+    fn = getattr(load(name), f"{name}_launch")
+    fn.restype = ctypes.c_int
+    args = [ctypes.c_void_p(t.data_ptr()) for t in tensors] + [
+        ctypes.c_float(s) if isinstance(s, float) else ctypes.c_int(s)
+        for s in scalars]
+    with torch.cuda.device(tensors[0].device):
+        err = fn(*args,
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{name}_launch failed with CUDA error {err}")

@@ -29,8 +29,6 @@ moments into gradients of the slot rows.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from tpu_gaussians_torch.kernels import build
@@ -114,16 +112,6 @@ def sorted_bwd_plain(gdense: torch.Tensor, cnt: torch.Tensor,
     return out.reshape(n_tiles * cap, GD_ROWS)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("sorted_bwd")
-    fn = lib.sorted_bwd_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def sorted_bwd(gdense: torch.Tensor, cnt: torch.Tensor, acc: torch.Tensor,
                g8: torch.Tensor, chunks_done: torch.Tensor, tiles_x: int,
                axis: bool = False) -> torch.Tensor:
@@ -131,22 +119,11 @@ def sorted_bwd(gdense: torch.Tensor, cnt: torch.Tensor, acc: torch.Tensor,
     the plain twin for CPU tensors. See the module docstring."""
     global launches
     n_tiles, cap = _check_bwd(gdense, cnt, acc, g8, chunks_done)
-    if gdense.device.type == "cpu":
+    if not build.on_cuda("sorted_bwd", gdense):
         return sorted_bwd_plain(gdense, cnt, acc, g8, chunks_done, tiles_x,
                                 axis)
-    if gdense.device.type != "cuda":
-        raise ValueError(f"sorted_bwd runs on cuda or cpu, got {gdense.device}")
-    if gdense.data_ptr() % 16:
-        raise ValueError("gdense must be 16-byte aligned (the kernel loads "
-                         "float4)")
-    fn = _library().sorted_bwd_launch
     out = torch.empty_like(gdense)
-    with torch.cuda.device(gdense.device):
-        err = fn(gdense.data_ptr(), cnt.data_ptr(), acc.data_ptr(),
-                 g8.data_ptr(), chunks_done.data_ptr(), out.data_ptr(),
-                 tiles_x, n_tiles, cap, int(axis),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sorted_bwd_launch failed with CUDA error {err}")
+    build.launch("sorted_bwd", (gdense, cnt, acc, g8, chunks_done, out),
+                 tiles_x, n_tiles, cap, int(axis))
     launches += 1
     return out

@@ -18,7 +18,6 @@ cnt (n_tiles,) int32, and return
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -145,16 +144,6 @@ def sorted_tiles_plain(gdense: torch.Tensor, cnt: torch.Tensor, tiles_x: int,
     return rgbw.permute(1, 0, 2).reshape(FEAT_PAD, n_tiles * TPS), chunks
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("sorted_fwd")
-    fn = lib.sorted_fwd_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def sorted_tiles(gdense: torch.Tensor, cnt: torch.Tensor, tiles_x: int,
                  axis: bool = False, exit_t: float = EXIT_T
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,21 +151,12 @@ def sorted_tiles(gdense: torch.Tensor, cnt: torch.Tensor, tiles_x: int,
     plain twin for CPU tensors. See the module docstring for the layouts."""
     global launches
     n_tiles, cap = _check(gdense, cnt)
-    if gdense.device.type == "cpu":
+    if not build.on_cuda("sorted_tiles", gdense):
         return sorted_tiles_plain(gdense, cnt, tiles_x, axis, exit_t)
-    if gdense.device.type != "cuda":
-        raise ValueError(f"sorted_tiles runs on cuda or cpu, got {gdense.device}")
-    if gdense.data_ptr() % 16:
-        raise ValueError("gdense must be 16-byte aligned (the kernel loads float4)")
-    fn = _library().sorted_fwd_launch
     out = torch.empty((FEAT_PAD, n_tiles * TPS), dtype=torch.float32,
                       device=gdense.device)
     chunks = torch.empty((n_tiles,), dtype=torch.int32, device=gdense.device)
-    with torch.cuda.device(gdense.device):
-        err = fn(gdense.data_ptr(), cnt.data_ptr(), out.data_ptr(),
-                 chunks.data_ptr(), tiles_x, n_tiles, cap, exit_t,
-                 int(axis), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sorted_fwd_launch failed with CUDA error {err}")
+    build.launch("sorted_fwd", (gdense, cnt, out, chunks), tiles_x, n_tiles,
+                 cap, float(exit_t), int(axis))
     launches += 1
     return out, chunks

@@ -29,8 +29,6 @@ Ex[c] = exp(a' tx^2) and Ey[r] = exp(c' ty^2):
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from tpu_gaussians_torch.kernels import build
@@ -142,36 +140,10 @@ def sep_bwd_plain(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
     return out
 
 
-def _launcher(name: str):
-    fn = getattr(build.load(name), f"{name}_launch")
-    if fn.argtypes is None:
-        n_ptr = 5 if name == "splat_sep_bwd" else 4
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _on_cuda(name: str, *tensors) -> bool:
-    dev = tensors[0].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, got {dev}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: tensors must be 16-byte aligned (the "
-                         "kernel loads float4)")
-    return True
-
-
 def _launch(name: str, args, out: torch.Tensor, lo: torch.Tensor,
             rows: int, wp: int, nb: int) -> None:
-    with torch.cuda.device(out.device):
-        err = _launcher(name)(*(t.data_ptr() for t in args), out.data_ptr(),
-                              lo.shape[0], rows, wp, nb, args[2].shape[0],
-                              torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}_launch failed with CUDA error {err}")
+    build.launch(name, (*args, out), lo.shape[0], rows, wp, nb,
+                 args[2].shape[0])
     launches[name] += 1
 
 
@@ -180,7 +152,7 @@ def splat_sep_fwd(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
     """K1 -> acc (n_bands, 5, R, wp): the CUDA kernel for CUDA tensors,
     the plain twin for CPU tensors."""
     _check(lo, cnt, gdata, rows, wp, nb)
-    if not _on_cuda("splat_sep_fwd", gdata):
+    if not build.on_cuda("splat_sep_fwd", gdata):
         return sep_fwd_plain(lo, cnt, gdata, rows, wp, nb)
     out = torch.empty((lo.shape[0], FEAT, rows, wp), dtype=torch.float32,
                       device=gdata.device)
@@ -195,7 +167,7 @@ def splat_sep_bwd(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
     CUDA tensors, the plain twin for CPU tensors."""
     _check(lo, cnt, gdata, rows, wp, nb)
     _check_gband(gband, lo, rows, wp)
-    if not _on_cuda("splat_sep_bwd", gdata, gband):
+    if not build.on_cuda("splat_sep_bwd", gdata, gband):
         return sep_bwd_plain(lo, cnt, gdata, gband, rows, wp, nb)
     out = torch.empty_like(gdata)
     _launch("splat_sep_bwd", (lo, cnt, gdata, gband), out, lo, rows, wp, nb)

@@ -1,10 +1,12 @@
-"""General-conic (EWA) band accumulation, forward: the CUDA kernel's
-wrapper and its plain twin.
+"""General-conic (EWA) band accumulation, forward and backward: the CUDA
+kernels' wrappers and their plain twins.
 
 `splat_v2_fwd` launches `csrc/splat_v2_fwd.cu` (K5, the replacement of the
-TPU kernel `tpu_gaussians/ops/pallas/splat.py:_fwd_kernel_v2`) for CUDA
-tensors and runs `v2_fwd_plain`, the same banded range loop in torch, for
-CPU tensors. It never falls back from one to the other.
+TPU kernel `tpu_gaussians/ops/pallas/splat.py:_fwd_kernel_v2`) and
+`splat_v2_bwd` launches `csrc/splat_v2_bwd.cu` (K6, replacing
+`_bwd_kernel_v2`) for CUDA tensors; for CPU tensors each runs its plain
+twin (`v2_fwd_plain`, `v2_bwd_plain`), the same banded range loop in torch.
+Neither falls back from one to the other.
 
 Inputs:
   lo, cnt (n_bands,) int32: band i (pixels [i*2048, (i+1)*2048) of the
@@ -16,11 +18,15 @@ Inputs:
 Output acc (8, hw_pad) f32: with dx = x - px, dy = y - py at pixel
 centres (+0.5),
   acc[f, p] = sum_g featsop_f exp(dx (a' dx + b' dy) + c' dy^2).
+K6 takes g8 (8, hw_pad), the cotangent of acc, and returns (n_pad, 16) rows
+[Mdx, Mdy, Mxx, Mxy, Myy, 0, g_featop(8), 0, 0] summed over every band whose
+range holds the gaussian, where with x = exp(...) as above,
+  g_e = x sum_f g8[f, p] featsop_f,  Mdx = sum_p g_e dx, Mdy = sum_p g_e dy,
+  Mxx = sum_p g_e dx^2, Mxy = sum_p g_e dx dy, Myy = sum_p g_e dy^2,
+  g_featop_f = sum_p g8[f, p] x.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -31,7 +37,15 @@ TP2 = 2048      # pixels per band
 FEAT_PAD = 8    # output rows
 BLOCK = 128     # nb is a multiple of this (ops/splat._v2_block)
 
-launches = 0    # kernel launches made by splat_v2_fwd
+# The twins' exponent floor. torch's CPU exp takes a slow path below
+# about -87 (denormal results), where most far (gaussian, pixel) pairs
+# lie; the kernels cut nothing off. exp(-60) = 8.8e-27, so the floor moves
+# a pair's term by at most 8.8e-27 times its coefficient (feats, or g8 and
+# up to dx^2 ~ 1e6 in a moment): about 1e-13 summed over a whole frame at
+# 1e6 pixels, far below every tolerance the twins are held to.
+EXP_FLOOR = -60.0
+
+launches = {"splat_v2_fwd": 0, "splat_v2_bwd": 0}   # kernel launches
 
 
 def _check(lo, cnt, gdata, hw_pad: int, width: int, nb: int) -> None:
@@ -76,44 +90,89 @@ def v2_fwd_plain(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
         gy = (idx // width).float()[:, None] + 0.5
         dx = gx - gd[None, :, 0]                               # (TP2, m)
         dy = gy - gd[None, :, 1]
-        x = torch.exp(dx * (gd[None, :, 2] * dx + gd[None, :, 3] * dy)
-                      + (gd[None, :, 4] * dy) * dy)
+        x = torch.exp(torch.clamp(
+            dx * (gd[None, :, 2] * dx + gd[None, :, 3] * dy)
+            + (gd[None, :, 4] * dy) * dy, min=EXP_FLOOR))
         out[:, i * TP2:(i + 1) * TP2] = (
             gd[:, GD_FEAT0:GD_FEAT0 + FEAT_PAD].T @ x.T)
     return out
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("splat_v2_fwd")
-    fn = lib.splat_v2_fwd_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+def check_g8(g8, like: torch.Tensor, cols: int) -> None:
+    """g8, a backward kernel's cotangent, must be contiguous float32
+    (8, cols) on like's device."""
+    if (g8.device != like.device or g8.dtype != torch.float32
+            or tuple(g8.shape) != (FEAT_PAD, cols)
+            or not g8.is_contiguous()):
+        raise ValueError(f"g8 must be contiguous float32 ({FEAT_PAD}, "
+                         f"{cols}) on {like.device}, got {g8.dtype} "
+                         f"{tuple(g8.shape)} on {g8.device}")
+
+
+def v2_bwd_plain(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
+                 g8: torch.Tensor, hw_pad: int, width: int,
+                 nb: int) -> torch.Tensor:
+    """K6's algorithm in torch (`_bwd_kernel_v2`, splat.py:510-569): per
+    band, x over its gaussian range at its 2048 pixels, g_x = g8^T featsop
+    and g_featop = g8 x as f32 products, the moments of g_e = x g_x; bands
+    add into the (n_pad, 16) rows in band order."""
+    _check(lo, cnt, gdata, hw_pad, width, nb)
+    check_g8(g8, gdata, hw_pad)
+    out = torch.zeros_like(gdata)
+    for i, (l, c) in enumerate(zip(lo.tolist(), cnt.tolist())):
+        if not c:
+            continue
+        s, e = l * nb, (l + c) * nb
+        gd = gdata[s:e]
+        idx = i * TP2 + torch.arange(TP2, device=gdata.device)
+        gx = (idx % width).float()[:, None] + 0.5              # (TP2, 1)
+        gy = (idx // width).float()[:, None] + 0.5
+        dx = gx - gd[None, :, 0]                               # (TP2, m)
+        dy = gy - gd[None, :, 1]
+        x = torch.exp(torch.clamp(
+            dx * (gd[None, :, 2] * dx + gd[None, :, 3] * dy)
+            + (gd[None, :, 4] * dy) * dy, min=EXP_FLOOR))
+        gb = g8[:, i * TP2:(i + 1) * TP2]                      # (8, TP2)
+        g_e = x * (gb.T @ gd[:, GD_FEAT0:GD_FEAT0 + FEAT_PAD].T)
+        u, v = g_e * dx, g_e * dy
+        out[s:e, :5] += torch.stack([u.sum(0), v.sum(0), (u * dx).sum(0),
+                                     (u * dy).sum(0), (v * dy).sum(0)], 1)
+        out[s:e, GD_FEAT0:GD_FEAT0 + FEAT_PAD] += (gb @ x).T
+    return out
 
 
 def splat_v2_fwd(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
                  hw_pad: int, width: int, nb: int) -> torch.Tensor:
     """K5 -> acc (8, hw_pad): the CUDA kernel for CUDA tensors, the plain
     twin for CPU tensors."""
-    global launches
     _check(lo, cnt, gdata, hw_pad, width, nb)
-    if gdata.device.type == "cpu":
+    if not build.on_cuda("splat_v2_fwd", gdata):
         return v2_fwd_plain(lo, cnt, gdata, hw_pad, width, nb)
-    if gdata.device.type != "cuda":
-        raise ValueError(f"splat_v2_fwd runs on cuda or cpu, got "
-                         f"{gdata.device}")
-    if gdata.data_ptr() % 16:
-        raise ValueError("gdata must be 16-byte aligned (the kernel loads "
-                         "float4)")
     out = torch.empty((FEAT_PAD, hw_pad), dtype=torch.float32,
                       device=gdata.device)
-    with torch.cuda.device(gdata.device):
-        err = _library().splat_v2_fwd_launch(
-            lo.data_ptr(), cnt.data_ptr(), gdata.data_ptr(), out.data_ptr(),
-            lo.shape[0], width, nb, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"splat_v2_fwd_launch failed with CUDA error {err}")
-    launches += 1
+    build.launch("splat_v2_fwd", (lo, cnt, gdata, out), lo.shape[0], width,
+                 nb)
+    launches["splat_v2_fwd"] += 1
+    return out
+
+
+def splat_v2_bwd(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
+                 g8: torch.Tensor, hw_pad: int, width: int,
+                 nb: int) -> torch.Tensor:
+    """K6 -> (n_pad, 16) per-gaussian moment rows: the CUDA kernel for CUDA
+    tensors, the plain twin for CPU tensors."""
+    _check(lo, cnt, gdata, hw_pad, width, nb)
+    check_g8(g8, gdata, hw_pad)
+    if not build.on_cuda("splat_v2_bwd", gdata):
+        return v2_bwd_plain(lo, cnt, gdata, g8, hw_pad, width, nb)
+    n_pad = gdata.shape[0]
+    # The kernel's partial rows per pixel segment, summed in segment order
+    # by its second pass.
+    part = torch.empty((build.load("splat_v2_bwd").splat_v2_bwd_split(),
+                        n_pad, GD_ROWS), dtype=torch.float32,
+                       device=gdata.device)
+    out = torch.empty_like(gdata)
+    build.launch("splat_v2_bwd", (lo, cnt, gdata, g8, part, out),
+                 lo.shape[0], width, nb, n_pad)
+    launches["splat_v2_bwd"] += 1
     return out

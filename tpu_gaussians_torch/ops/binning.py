@@ -1,17 +1,21 @@
-"""Tile binner of the depth-sorted path: which gaussians each 16x128
-pixel tile composites, in what order. Plain torch, no kernel.
+"""Tile binner of the depth-sorted and the tile-binned accumulation
+paths: which gaussians each 16x128 pixel tile takes, in what order. Plain
+torch, no kernel.
 
 The semantics of the binner half of `tpu_gaussians/ops/pallas/sorted.py`
 (`_bin_pairs_2d`, `_tile_rects`, `_zkey_desc`, `_k_pairs`), giving the same
 per-tile lists, counts and overflow stats:
 
-  1. Gaussians are sorted once by depth, near first: the ascending IEEE
-     total-order key of -z, ties broken by index (the order of a stable
-     argsort(-z)).
-  2. Each gaussian covers a rectangle of tiles from its 1e-5 alpha-cutoff
-     extent, shrunk to at most k tiles around its own tile.
-  3. The (tile, depth rank) pairs are sorted once by `tile * n + rank`, and
-     each tile keeps its first `cap` entries: overflow drops the FARTHEST.
+  1. Gaussians are sorted once by priority: depth, near first, for
+     compositing (zsort=True: the ascending IEEE total-order key of -z,
+     ties broken by index, the order of a stable argsort(-z)); opacity,
+     strongest first, for the order-independent accumulation (zsort=False).
+  2. Each gaussian covers a rectangle of tiles from its cutoff extent
+     (1e-5 alpha for compositing), shrunk to at most k tiles around its
+     own tile.
+  3. The (tile, priority rank) pairs are sorted once by `tile * n + rank`,
+     and each tile keeps its first `cap` entries: overflow drops the
+     FARTHEST (compositing) or the WEAKEST (accumulation).
 
 The TPU binner's chunked sorts, MXU histogram and 128-wide gathers exist
 for XLA's sort and gather costs on that chip; a GPU sorts the pair keys in
@@ -38,6 +42,11 @@ EXIT_T = 1e-6  # whole-tile early-exit transmittance threshold
 # K_MAX), huge scenes (whose splats are small) a tight budget.
 PAIR_BUDGET = 12_000_000
 K_MIN, K_MAX = 8, 64
+# The tile-binned accumulation bins with the W_CULL extents (~8 sigma),
+# much wider than the alpha-cutoff ones, so it gets a larger budget and
+# floor (`tpu_gaussians/ops/pallas/binned.py:116-117`).
+ACCUM_PAIR_BUDGET = 24_000_000
+ACCUM_K_MIN = 16
 
 
 def _round_up(x: int, m: int) -> int:
@@ -103,18 +112,21 @@ def tile_rects(px, py, sigma_x, sigma_y, op_eff, tiles_x: int,
 
 def bin_pairs_2d(px, py, sigma_x, sigma_y, op_eff, z_cam, tiles_x: int,
                  tiles_y: int, cap: int, width: int, height: int,
-                 k: int = 0, cutoff: float = ALPHA_CUTOFF
+                 k: int = 0, cutoff: float = ALPHA_CUTOFF,
+                 zsort: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor,
                             Dict[str, torch.Tensor]]:
-    """Dense, depth-ordered per-tile lists of gaussian ids.
+    """Dense, priority-ordered per-tile lists of gaussian ids: depth (near
+    first) with zsort=True, opacity (strongest first; z_cam is not read,
+    and may be None) with zsort=False.
 
     Returns (slots (n_tiles*cap,) int64 original gaussian ids, n where the
              slot is empty (the packed table's dead row),
              cnt (n_tiles,) int32 per-tile list lengths,
              stats of int64 scalars: dropped_pairs (pairs lost to the
-             per-tile capacity, farthest first), full_tiles (tiles whose
-             true load exceeded cap), clipped_rect_pairs (true overlaps
-             lost to the per-gaussian k-tile budget)).
+             per-tile capacity, lowest priority first), full_tiles (tiles
+             whose true load exceeded cap), clipped_rect_pairs (true
+             overlaps lost to the per-gaussian k-tile budget)).
     """
     n = px.shape[0]
     dev = px.device
@@ -123,7 +135,8 @@ def bin_pairs_2d(px, py, sigma_x, sigma_y, op_eff, z_cam, tiles_x: int,
         k = k_pairs(n)
 
     index = torch.arange(n, dtype=torch.int64, device=dev)
-    order = torch.sort((zkey_desc(z_cam) << 31) | index).values & (2**31 - 1)
+    prio = zkey_desc(z_cam) if zsort else zkey_desc(op_eff)
+    order = torch.sort((prio << 31) | index).values & (2**31 - 1)
     tx_lo, ty_lo, kx_c, ky_c, count, clipped = tile_rects(
         px[order], py[order], sigma_x[order], sigma_y[order], op_eff[order],
         tiles_x, tiles_y, k, width, height, cutoff=cutoff)

@@ -4,8 +4,12 @@
 two agree to float tolerance.
 
   accum  tiled: ops/splat.splat_accumulate, the axis footprint through the
-         separable band kernels K1/K2 (differentiable), the EWA footprint
-         through K5 (forward only); torch: plain_renderer.accumulate
+         separable band kernels K1/K2, the EWA footprint through the
+         general-conic band kernels K5/K6; or, under accum_binned "on" or
+         EWA at n >= BINNED_MIN_N under "auto", ops/binned.
+         splat_accumulate_binned through the tile-binned K8a/K8b (EWA
+         only: the axis footprint's K7 is not ported); all
+         differentiable. torch: plain_renderer.accumulate
   sorted tiled: binner + per-tile compositing kernels K3/K4
          (differentiable); torch: plain_renderer.composite_sorted
 """
@@ -21,16 +25,13 @@ from tpu_gaussians_torch.core.types import (
     Camera, Gaussians, RenderConfig, validate_camera, validate_gaussians)
 from tpu_gaussians_torch.ops import plain_renderer
 from tpu_gaussians_torch.ops import sorted as tiled_sorted
+from tpu_gaussians_torch.ops.binned import (  # noqa: F401 (BINNED_MIN_N)
+    ALPHA_CUTOFF, BINNED_MIN_N, W_CULL, binned_min_n,
+    splat_accumulate_binned)
 from tpu_gaussians_torch.ops.binning import EXIT_T
 from tpu_gaussians_torch.ops.common import prepare_splats, resolve_accum
 from tpu_gaussians_torch.ops.projection import camera_z
 from tpu_gaussians_torch.ops.splat import splat_accumulate
-
-
-# EWA accumulation at or above this many gaussians takes the tile-binned
-# kernels under accum_binned="auto" (`tpu_gaussians.ops.pallas.binned.
-# BINNED_MIN_N`: the dense EWA backward's cost passes binned's near 10k).
-BINNED_MIN_N = 10_240
 
 
 def _resolve_impl(impl: str) -> str:
@@ -52,13 +53,13 @@ def _warn_ignored(knobs: str, path: str) -> None:
 
 def uses_binned_accum(config: RenderConfig, n: int) -> bool:
     """Whether the accumulation of n gaussians takes the tile-binned kernels
-    (dispatch.py:87-100): accum_binned 'on', or 'auto' with the EWA
-    footprint at n >= BINNED_MIN_N. The axis footprint's band kernels win
-    at every n, so 'auto' never bins it."""
+    (dispatch.py:87-100): accum_binned 'on', or 'auto' at n >=
+    binned_min_n: BINNED_MIN_N for EWA, never for the axis footprint, whose
+    band kernels win at every n."""
     if config.accum_binned == "on":
         return True
-    return (config.accum_binned == "auto" and config.footprint != "axis"
-            and n >= BINNED_MIN_N)
+    return (config.accum_binned == "auto"
+            and n >= binned_min_n(config.footprint == "axis"))
 
 
 def zero_overflow_stats(device) -> Dict[str, torch.Tensor]:
@@ -73,35 +74,42 @@ def render_accum(
     config: RenderConfig, row0: Union[torch.Tensor, float, None] = None,
     return_stats: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
-    """Weighted-average mode -> (image, alpha, depth) [+ overflow stats,
-    zeros: both accumulation paths are exact]. Differentiable, but for the
-    EWA footprint under impl='tiled' (forward only until K6 is ported).
+    """Weighted-average mode -> (image, alpha, depth) [+ the binner's
+    overflow stats, zeros on the exact dense and plain paths].
+    Differentiable.
 
     row0: render the row window [row0, row0 + config.height) of the full
     frame the camera was built for (config.proj_height); see render_sorted.
+    accum_cull and accum_tile_capacity act on the tile-binned path only.
     """
     s = prepare_splats(g, view, proj, config.width, config.full_height(),
                        footprint=config.footprint)
     if row0 is not None:
         s = s._replace(py=s.py - row0)
-    if config.accum_cull != "exact" or config.accum_tile_capacity:
-        _warn_ignored("accum_cull/accum_tile_capacity",
-                      f"{_resolve_impl(config.impl)} accum (dense)")
+    stats = zero_overflow_stats(g.device)
+    knobs = config.accum_cull != "exact" or config.accum_tile_capacity
     if _resolve_impl(config.impl) == "tiled":
+        axis = config.footprint == "axis"
         if uses_binned_accum(config, s.px.shape[0]):
-            raise NotImplementedError(
-                "the tile-binned accumulation (TPU kernels K7/K8; "
-                "accum_binned='on', or the EWA footprint at n >= "
-                f"{BINNED_MIN_N} under 'auto') is ported in slice 4; use "
-                "accum_binned='off', or impl='torch'")
-        acc = splat_accumulate(s, config.height, config.width,
-                               axis=config.footprint == "axis")
+            acc, stats = splat_accumulate_binned(
+                s, config.height, config.width, axis=axis, return_stats=True,
+                tile_capacity=config.accum_tile_capacity,
+                cutoff=ALPHA_CUTOFF if config.accum_cull == "alpha"
+                else W_CULL)
+        else:
+            if knobs:
+                _warn_ignored("accum_cull/accum_tile_capacity",
+                              "dense tiled accum (accum_binned off, or auto "
+                              "below binned_min_n)")
+            acc = splat_accumulate(s, config.height, config.width, axis=axis)
     else:
+        if knobs:
+            _warn_ignored("accum_cull/accum_tile_capacity", "torch accum")
         acc = plain_renderer.accumulate(s, config.height, config.width,
                                         chunk=config.chunk_size)
     out = resolve_accum(acc, config.background_tensor(g.device),
                         config.height, config.width)
-    return out + (zero_overflow_stats(g.device),) if return_stats else out
+    return out + (stats,) if return_stats else out
 
 
 def render_sorted(

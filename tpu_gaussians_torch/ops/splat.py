@@ -11,7 +11,8 @@ conservative y-extent (weight >= W_CULL) reaches it. `stage` sorts and
 stages the inputs once (pad, cull mask, block ranges, packed rows);
 `_SplatSep` runs K1 forward and K2 backward on them, and finishes the
 gradient with an O(n) torch post-pass. The general conic (EWA) takes
-2048-pixel bands through K5 (kernels/splat_v2.py), forward only.
+2048-pixel bands (`_v2_prep`) through `_SplatV2`: K5 forward, K6 backward
+(kernels/splat_v2.py) and the same kind of post-pass.
 
 Not ported, because they exist only for the TPU's memory: the VMEM
 capacity model and super-block streaming (`_sep_fits`, `_sep_pass_*`) and
@@ -26,7 +27,8 @@ import torch
 
 from tpu_gaussians_torch.kernels.splat_sep import (
     FEAT, GD_FEAT0, GD_ROWS, splat_sep_bwd, splat_sep_fwd)
-from tpu_gaussians_torch.kernels.splat_v2 import TP2, splat_v2_fwd
+from tpu_gaussians_torch.kernels.splat_v2 import (
+    TP2, splat_v2_bwd, splat_v2_fwd)
 from tpu_gaussians_torch.ops.common import SplatInputs
 
 FEAT_PAD = 8          # feats padded to 8 columns: [r, g, b, 1, z, 0, 0, 0]
@@ -154,7 +156,9 @@ def _sep_prep(px, py, ca, cb, cc, op, feats, height: int, width: int):
 def _v2_prep(s: SplatInputs, height: int, width: int):
     """K5's staging (splat.py:1005-1016) of s in the order given (see
     y_sorted): pad to the v2 block, cull mask over 2048-pixel bands, block
-    ranges, packed rows -> (lo, cnt, gdata, nb, hw_pad). Forward only."""
+    ranges, packed rows -> (lo, cnt, gdata, nb, hw_pad). It carries no
+    gradient: _SplatV2's backward builds the columns' gradients from K6's
+    moments."""
     n = s.px.shape[0]
     nb = _v2_block(n)
     hw_pad = _round_up(height * width, TP2)
@@ -227,24 +231,47 @@ class _SplatSep(torch.autograd.Function):
                 None, None, None)
 
 
+class _SplatV2(torch.autograd.Function):
+    """acc (H*W, 5) = sum_i w_i(p) feats_i for any conic through K5;
+    backward through K6 and the O(n) chain-rule post-pass (splat.py:
+    1091-1107), with the unscaled conic and op of the unpadded inputs."""
+
+    @staticmethod
+    def forward(ctx, px, py, ca, cb, cc, op, feats, prep, height: int,
+                width: int):
+        lo, cnt, gdata, nb, hw_pad = prep
+        acc8 = splat_v2_fwd(lo, cnt, gdata, hw_pad, width, nb)
+        ctx.save_for_backward(ca, cb, cc, op, feats, lo, cnt, gdata)
+        ctx.dims = (height, width, nb, hw_pad)
+        return acc8[:FEAT, :height * width].T
+
+    @staticmethod
+    def backward(ctx, g):
+        ca, cb, cc, op, feats, lo, cnt, gdata = ctx.saved_tensors
+        height, width, nb, hw_pad = ctx.dims
+        g8 = g.new_zeros((FEAT_PAD, hw_pad))
+        g8[:FEAT, :height * width] = g.T
+        out = splat_v2_bwd(lo, cnt, gdata, g8, hw_pad, width, nb)
+        mdx, mdy, mxx, mxy, myy = out[:ca.shape[0], :5].unbind(dim=1)
+        g_featop = out[:ca.shape[0], GD_FEAT0:GD_FEAT0 + FEAT]
+        return (ca * mdx + cb * mdy, cb * mdx + cc * mdy, -0.5 * mxx, -mxy,
+                -0.5 * myy, (feats * g_featop).sum(dim=1),
+                g_featop * op[:, None], None, None, None)
+
+
 def splat_accumulate(s: SplatInputs, height: int, width: int, *,
                      axis: bool) -> torch.Tensor:
-    """acc (H*W, 5) of the weighted-average mode.
+    """acc (H*W, 5) of the weighted-average mode, differentiable in every
+    SplatInputs field but sigma_x/y.
 
     axis=True is the caller's promise that conic_b == 0: the separable
-    band kernels K1/K2, differentiable in every SplatInputs field but
-    sigma_x/y. axis=False takes any conic through the general-conic band
-    kernel K5, forward only: its gradient (K6) is not ported yet, and an
-    input that requires grad is refused rather than given none."""
+    band kernels K1/K2. axis=False takes any conic through the
+    general-conic band kernels K5/K6."""
     if not axis:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in s):
-            raise NotImplementedError(
-                "the gradient of the general-conic (EWA) accumulation (TPU "
-                "kernel K6, splat.py:_bwd_kernel_v2) is ported in slice 4; "
-                "render under torch.no_grad(), or use impl='torch'")
-        lo, cnt, gdata, nb, hw_pad = _v2_prep(y_sorted(s), height, width)
-        acc8 = splat_v2_fwd(lo, cnt, gdata, hw_pad, width, nb)
-        return acc8[:FEAT, :height * width].T
+        s = y_sorted(s)
+        prep = _v2_prep(s, height, width)
+        return _SplatV2.apply(s.px, s.py, s.conic_a, s.conic_b, s.conic_c,
+                              s.op_eff, s.feats, prep, height, width)
     s, prep = stage(s, height, width)
     return _SplatSep.apply(s.px, s.py, s.conic_a, s.conic_b, s.conic_c,
                            s.op_eff, s.feats, prep, height, width)
