@@ -75,21 +75,56 @@ Phases, each of which fails the run by raising:
               exactly 901 times and K8b 900, no other kernel, no pair
               dropped in any step; a profile; K8a/K8b against their twins on
               the fit's own lists
- 15. report   one `kernels` JSON line, the nvidia-smi line, and last
+ 15. fit axis binned  the recipe plus --accum_binned on (the axis footprint
+              through the separable tile-binned kernels): the checks of
+              phase 7, K7a (binned_sep_fwd) launched exactly 900 times, K7b
+              (binned_sep_bwd) 900 and K1 once (the preview, on JAX's
+              preview config), no other kernel, no pair dropped in any step;
+              a profile; K7a/K7b against their twins on the fit's own lists
+ 16. scale axis binned  phase 8's 100k axis scene and views under
+              accum_binned "on": 10 train steps timed, a profile; K7a, then
+              K7b on a seeded cotangent, against their twins on view 0's
+              lists, with the binner's stats and the live slots; view 0
+              rendered through K7a against K1, with nothing dropped (the
+              tile capacity raised to n if the default drops pairs)
+ 17. scale ewa exact  1,000,000 EWA gaussians (phase 3's generator at the
+              serving path's 1M size, seeded quaternions), 4 views at
+              512x512, accum mode under accum_binned "off": above both of
+              JAX's v2 sizes, so forward and backward take the tile grid; 3
+              train steps timed and 1 profiled, K9a (splat_v1_fwd) and K9b
+              (splat_v1_bwd) launched exactly 4 times per step each and no
+              other kernel
+ 18. K9       K9a, then K9b on a seeded cotangent, against their twins on
+              view 0 at 1M (one twin call each; K5 and K6 timed on the same
+              view, the route the threshold does not take) and at 8,192 EWA
+              gaussians on 512x512, where K9a's sums are also held against
+              K5's and splat_accumulate's gradients through K9a/K9b against
+              those through K5/K6
+ 19. scale ewa mixed  500,000 EWA gaussians, the same views and config:
+              between JAX's two v2 sizes, so the forward takes K5 and the
+              backward K9b on a restaging of the saved columns; 1 train
+              step timed and 1 profiled, K5 and K9b launched exactly 4
+              times per step each and no other kernel; view 0's sums and
+              gradients against both directions on the tile grid
+ 20. report   one `kernels` JSON line, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
-K1, K5 and K8a are held to rtol 1e-5 / atol 1e-5; K2, K6 and K8b to rtol
-2e-4 and atol 2e-5 times the largest magnitude of their output column (at
-least 1; their moments are sums of signed terms that cancel); K4 to rtol
-2e-3 and atol 2e-4 times the largest magnitude of its output column (the
-JAX suite's tolerance for the sorted backward: ctg - P_i cancels and is
-divided by 1 - a); K2, K4, K6 and K8b are bit-identical across two
-launches. Kernel times are CUDA-event medians of 20 after warm-up (twins:
-of 5). The launch counters are set to 0 just before each main path
-(phases 4-5 for serving, the cli.fit.main calls of phases 7, 9, 13 and 14
-for training) and read just after: every kernel of the path must have
-launched there. It exits non-zero, printing no result, without a CUDA
-device or outside a checkout.
+K1, K5, K7a, K8a and K9a are held to rtol 1e-5 / atol 1e-5; K2, K6, K7b,
+K8b and K9b to rtol 2e-4 and atol 2e-5 times the largest magnitude of their
+output column (at least 1; their moments are sums of signed terms that
+cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest magnitude of its
+output column (the JAX suite's tolerance for the sorted backward: ctg - P_i
+cancels and is divided by 1 - a); K2, K4, K6, K7b, K8b and K9b are
+bit-identical across two launches. K9a against K5 and binned against dense
+renders: rtol 1e-4 / atol 1e-5; gradients through K9 against K5/K6, and
+the mixed route's against the tile grid's: rtol 2e-3 and atol 2e-4 times
+the largest magnitude. Kernel times are CUDA-event medians of 20 after
+warm-up (twins: of 5; at 1M, kernels of 5 and twins of 1). The launch
+counters are set to 0 just before each main path (phases 4-5 for serving,
+the cli.fit.main calls of phases 7, 9, 13, 14 and 15 and the train steps
+of phases 17 and 19 for training) and read just after: every kernel of
+the path must have launched there. It exits non-zero, printing no result,
+without a CUDA device or outside a checkout.
 """
 
 from __future__ import annotations
@@ -142,6 +177,21 @@ V2_BWD_FLOPS_PER_PAIR = 52
 # multiply-adds). The exps are not counted.
 BINNED_FWD_FLOPS_PER_PAIR = 22
 BINNED_BWD_FLOPS_PER_PAIR = 44
+# Per (slot, pixel) pair of K7a/K7b, counted from the function's products
+# as K1/K2's are, not from the kernels' loops: acc += G2 . Ex, one
+# multiply-add per feature (G2 = featsop x Ey is per slot and row); the
+# backward's gG2 = gband . Ex and gEx = gband^T . G2, one each. The 144
+# exps and the per-slot terms are not counted. (The kernels' loops do 17
+# and 37: K7a forms Ey * Ex per pixel, K7b regroups around h.)
+BINNED_SEP_FWD_FLOPS_PER_PAIR = 2 * 8
+BINNED_SEP_BWD_FLOPS_PER_PAIR = 2 * 2 * 8
+# Per (gaussian, pixel) pair of the active (tile, block) pairs in K9a
+# (csrc/splat_v1_fwd.cu): dx, dy, the Horner exponent (7), op * exp and 8
+# multiply-adds; in K9b (csrc/splat_v1_bwd.cu): dx, dy, the exponent (7),
+# op * exp, g_w (8 multiply-adds), g_e, exp(e) g_w, u and v, the five
+# moment sums (8) and g_feat (8 multiply-adds). The exps are not counted.
+V1_FWD_FLOPS_PER_PAIR = 26
+V1_BWD_FLOPS_PER_PAIR = 55
 FIT_ARGS = ["--targets_dir", "assets/example_scene", "--camera_npz",
             "assets/example_scene/cameras.npz", "--iters", "150", "--use_sh",
             "--num_gaussians", "800"]
@@ -149,6 +199,7 @@ SORTED_FIT_ARGS = ["--max_gaussians", "4096", "--footprint", "ewa"]
 EWA_ACCUM_FIT_ARGS = ["--footprint", "ewa"]
 EWA_BINNED_FIT_ARGS = ["--footprint", "ewa", "--max_gaussians", "16384",
                        "--render_mode", "accum"]
+AXIS_BINNED_FIT_ARGS = ["--accum_binned", "on"]
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -195,6 +246,24 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def timed(fn, reps: int):
+    """(fn()'s last output, median CUDA-event ms of `reps` calls), with no
+    warm-up: for plain twins that take seconds a call."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return out, times[len(times) // 2]
 
 
 def http_get(url: str):
@@ -347,8 +416,11 @@ def kernel_case(name, g, width, height, knobs, reps):
 def profile_calls(fn, calls: int) -> dict:
     """Device time per call by CUDA kernel, from torch.profiler over
     `calls` back-to-back calls of fn(i); the device's busy share of the
-    wall time (the profiler's own host overhead included); and the
-    top-level torch operations the host dispatches per call."""
+    wall time (the profiler's own host overhead included); and the torch
+    operations the host dispatches per call: every aten op that no other
+    aten op encloses, wherever it runs (forward, an autograd.Function's
+    body, the backward, the optimizer), so that the count does not depend
+    on how the code nests its profiler ranges."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -370,9 +442,18 @@ def profile_calls(fn, calls: int) -> dict:
             and "#" not in e.key]          # not a range, e.g. Adam.step's
     rows.sort(key=lambda r: -r["ms_per_call"])
     busy = sum(r["ms_per_call"] for r in rows)
-    host_ops = sum(1 for e in prof.events()
-                   if e.device_type == DeviceType.CPU and e.cpu_parent is None
-                   and e.name.startswith("aten::"))
+    def outermost_aten(e) -> bool:
+        if e.device_type != DeviceType.CPU or not e.name.startswith(
+                "aten::"):
+            return False
+        parent = e.cpu_parent
+        while parent is not None:
+            if parent.name.startswith("aten::"):
+                return False
+            parent = parent.cpu_parent
+        return True
+
+    host_ops = sum(1 for e in prof.events() if outermost_aten(e))
     return {"calls": calls, "wall_ms_per_call": wall_ms,
             "device_busy_ms_per_call": busy if rows else None,
             "device_busy_share": busy / wall_ms if rows else None,
@@ -566,9 +647,10 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     from tpu_gaussians_torch.kernels import (
-        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v2)
+        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2)
 
-    for counts in (splat_sep.launches, splat_v2.launches, binned.launches):
+    for counts in (splat_sep.launches, splat_v2.launches, binned.launches,
+                   splat_v1.launches):
         for k in counts:
             counts[k] = 0
     sorted_fwd.launches = sorted_bwd.launches = 0
@@ -576,11 +658,11 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     from tpu_gaussians_torch.kernels import (
-        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v2)
+        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2)
 
     return {"sorted_fwd": sorted_fwd.launches,
             "sorted_bwd": sorted_bwd.launches, **splat_sep.launches,
-            **splat_v2.launches, **binned.launches}
+            **splat_v2.launches, **binned.launches, **splat_v1.launches}
 
 
 def fit_phase(tmp: Path, name: str, extra_args, launches_expected: dict,
@@ -832,11 +914,12 @@ def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
 
 
 def binned_case(name: str, g, view, proj, width: int, height: int,
-                seed: int, reps: int = 20) -> dict:
-    """K8a, then K8b on a seeded N(0,1) cotangent of K8a's output, against
-    their plain twins on one view's EWA lists, built by the training path's
-    own ops/binned.accum_lists: errors, K8b's determinism, CUDA-event times,
-    bounds, the binner's stats and the live slots. Raises on a
+                seed: int, reps: int = 20, footprint: str = "ewa") -> dict:
+    """K8a, then K8b on a seeded N(0,1) cotangent of K8a's output (for the
+    axis footprint the separable K7a and K7b), against their plain twins on
+    one view's lists, built by the training path's own
+    ops/binned.accum_lists: errors, the backward's determinism, CUDA-event
+    times, bounds, the binner's stats and the live slots. Raises on a
     disagreement."""
     import torch
 
@@ -845,44 +928,56 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
     from tpu_gaussians_torch.ops.binning import NBS, TPS
     from tpu_gaussians_torch.ops.common import prepare_splats
 
+    if footprint == "axis":
+        ids, fwd, fwd_plain, bwd, bwd_plain = (
+            ("K7a", "K7b"), KB.binned_sep_fwd, KB.binned_sep_fwd_plain,
+            KB.binned_sep_bwd, KB.binned_sep_bwd_plain)
+        flops_fb = (BINNED_SEP_FWD_FLOPS_PER_PAIR,
+                    BINNED_SEP_BWD_FLOPS_PER_PAIR)
+    else:
+        ids, fwd, fwd_plain, bwd, bwd_plain = (
+            ("K8a", "K8b"), KB.binned_fwd, KB.binned_fwd_plain,
+            KB.binned_bwd, KB.binned_bwd_plain)
+        flops_fb = (BINNED_FWD_FLOPS_PER_PAIR, BINNED_BWD_FLOPS_PER_PAIR)
     with torch.no_grad():
-        s = prepare_splats(g, view, proj, width, height, footprint="ewa")
+        s = prepare_splats(g, view, proj, width, height, footprint=footprint)
         gdense, cnt, tiles_x, _, stats = accum_lists(s, height, width)
-        acc = KB.binned_fwd(gdense, cnt, tiles_x)
-        ref = KB.binned_fwd_plain(gdense, cnt, tiles_x)
+        acc = fwd(gdense, cnt, tiles_x)
+        ref = fwd_plain(gdense, cnt, tiles_x)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         g8 = torch.randn(acc.shape, generator=gen, device="cuda")
-        out = KB.binned_bwd(gdense, cnt, g8, tiles_x)
-        again = KB.binned_bwd(gdense, cnt, g8, tiles_x)
-        ref_b = KB.binned_bwd_plain(gdense, cnt, g8, tiles_x)
+        out = bwd(gdense, cnt, g8, tiles_x)
+        again = bwd(gdense, cnt, g8, tiles_x)
+        ref_b = bwd_plain(gdense, cnt, g8, tiles_x)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(acc).all() and torch.isfinite(out).all()),
-              f"{name}: non-finite K8 output")
+              f"{name}: non-finite {ids} output")
         err_f = float((acc - ref).abs().max())
         check(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
-              f"{name}: K8a disagrees with its twin (max abs err {err_f})")
-        check(bool(torch.equal(out, again)), f"{name}: K8b not deterministic")
+              f"{name}: {ids[0]} disagrees with its twin (max abs err "
+              f"{err_f})")
+        check(bool(torch.equal(out, again)),
+              f"{name}: {ids[1]} not deterministic")
         scale = torch.clamp(ref_b.abs().amax(dim=0), min=1.0)
         bad = (out - ref_b).abs() > 2e-4 * ref_b.abs() + 2e-5 * scale
         err_b = float((out - ref_b).abs().max())
         check(not bool(bad.any()),
-              f"{name}: K8b disagrees with its twin in {int(bad.sum())} "
-              f"values (max abs err {err_b})")
+              f"{name}: {ids[1]} disagrees with its twin in "
+              f"{int(bad.sum())} values (max abs err {err_b})")
         times = {
-            "fwd_ms": time_ms(lambda: KB.binned_fwd(gdense, cnt, tiles_x),
-                              reps),
-            "fwd_plain_ms": time_ms(lambda: KB.binned_fwd_plain(
-                gdense, cnt, tiles_x), 5, 1),
-            "bwd_ms": time_ms(lambda: KB.binned_bwd(gdense, cnt, g8,
-                                                    tiles_x), reps),
-            "bwd_plain_ms": time_ms(lambda: KB.binned_bwd_plain(
-                gdense, cnt, g8, tiles_x), 5, 1),
+            "fwd_ms": time_ms(lambda: fwd(gdense, cnt, tiles_x), reps),
+            "fwd_plain_ms": time_ms(lambda: fwd_plain(gdense, cnt, tiles_x),
+                                    5, 1),
+            "bwd_ms": time_ms(lambda: bwd(gdense, cnt, g8, tiles_x), reps),
+            "bwd_plain_ms": time_ms(lambda: bwd_plain(gdense, cnt, g8,
+                                                      tiles_x), 5, 1),
         }
     # The least the card could take: the listed (live) slots of each tile
-    # times its 2048 pixels, at K8a's (K8b's) operations each, against the
-    # listed slots (64 B) and cnt read once and the (8, tiles*2048) sums
-    # written once (K8b: g8 read once and the (tiles*cap, 16) rows written
-    # once). slots_processed is what the kernels run: whole 512-slot chunks.
+    # times its 2048 pixels, at the forward's (backward's) operations each,
+    # against the listed slots (64 B) and cnt read once and the
+    # (8, tiles*2048) sums written once (the backward: g8 read once and the
+    # (tiles*cap, 16) rows written once). slots_processed is what the
+    # kernels run: whole 512-slot chunks.
     n_tiles = cnt.shape[0]
     cap = gdense.shape[0] // n_tiles
     live = int(cnt.to(torch.int64).sum())
@@ -891,15 +986,15 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
     base_bytes = live * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS
     bounds = {}
     for kind, flops, nbytes in (
-            ("fwd", BINNED_FWD_FLOPS_PER_PAIR, base_bytes),
-            ("bwd", BINNED_BWD_FLOPS_PER_PAIR,
-             base_bytes + gdense.numel() * 4)):
+            ("fwd", flops_fb[0], base_bytes),
+            ("bwd", flops_fb[1], base_bytes + gdense.numel() * 4)):
         ops_ms = 1e3 * flops * live * TPS / F32_FLOPS_PER_S
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         bounds[f"{kind}_bound_ms"] = max(ops_ms, bytes_ms)
         bounds[f"{kind}_bound_by"] = ("operations" if ops_ms >= bytes_ms
                                       else "bytes")
-    case = {"case": name, "n": g.capacity, "width": width, "height": height,
+    case = {"case": name, "footprint": footprint, "n": g.capacity,
+            "width": width, "height": height,
             "tiles": n_tiles, "cap": cap, "slots_live": live,
             "slots_processed": processed, "max_cnt": int(cnt.max()),
             "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b,
@@ -910,48 +1005,270 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
     return case
 
 
-def binned_dense_check(cams, side: int, seed: int) -> None:
-    """About 12,288 EWA gaussians at side x side: render(accum_binned="on",
-    K8a) against render(accum_binned="off", K5). With nothing dropped (every
-    overflow stat 0; the tile capacity raised to n if one is not) the image
-    and alpha agree within rtol 1e-4 / atol 1e-5."""
-    import numpy as np
+def v1_case(name: str, g, view, proj, width: int, height: int, seed: int,
+            reps: int = 20, plain_reps: int = 5, dense: bool = False) -> dict:
+    """K9a, and K9b on a seeded N(0,1) cotangent (zero beyond the frame and
+    in rows 5-7, as the backward stages it), against their plain twins on
+    one view's EWA accumulation inputs, staged by the render path's own
+    ops/splat._v1_prep: errors, K9b's determinism, CUDA-event times and
+    bounds. With dense, also the band route on the same view: K9a's sums
+    against K5's (rtol 1e-4 / atol 1e-5), and splat_accumulate's values and
+    gradients with both directions on the tile grid against both on the
+    bands (K6 and its post-pass) at the sorted-gradient tolerance (rtol
+    2e-3, atol 2e-4 times the largest magnitude). Without dense (a size the
+    route sends to the tile grid), K5 and K6 are timed on the same view
+    and cotangent instead, and K5's largest difference from K9a's sums is
+    reported, not checked: the route never takes the bands there. Raises on
+    a disagreement."""
     import torch
 
-    from tpu_gaussians_torch.core.types import RenderConfig, make_gaussians
+    from tpu_gaussians_torch.kernels import splat_v1
+    from tpu_gaussians_torch.ops import splat
+    from tpu_gaussians_torch.ops.common import prepare_splats
+
+    hw = width * height
+    with torch.no_grad():
+        s = splat.y_sorted(prepare_splats(g, view, proj, width, height,
+                                          footprint="ewa"))
+        mask, gdata, nb, tp, hw_pad = splat._v1_prep(s, height, width)
+        args = (mask, gdata, hw_pad, width, nb, tp)
+        acc = splat_v1.splat_v1_fwd(*args)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        g8 = torch.zeros((8, hw_pad), device="cuda")
+        g8[:5, :hw] = torch.randn((5, hw), generator=gen, device="cuda")
+        bargs = (mask, gdata, g8, hw_pad, width, nb, tp)
+        out = splat_v1.splat_v1_bwd(*bargs)
+        again = splat_v1.splat_v1_bwd(*bargs)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(acc).all()), f"{name}: non-finite K9a sums")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite K9b rows")
+        check(bool(torch.equal(out, again)), f"{name}: K9b not deterministic")
+        # the twins without warm-up (at 1M a call takes seconds)
+        ref, p_ms = timed(lambda: splat_v1.v1_fwd_plain(*args), plain_reps)
+        err = float((acc - ref).abs().max())
+        check(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
+              f"{name}: K9a disagrees with its twin (max abs err {err})")
+        ref_b, pb_ms = timed(lambda: splat_v1.v1_bwd_plain(*bargs),
+                             plain_reps)
+        scale = torch.clamp(ref_b.abs().amax(dim=0), min=1.0)
+        bad = (out - ref_b).abs() > 2e-4 * ref_b.abs() + 2e-5 * scale
+        err_b = float((out - ref_b).abs().max())
+        check(not bool(bad.any()),
+              f"{name}: K9b disagrees with its twin in {int(bad.sum())} "
+              f"values (max abs err {err_b})")
+        del ref, ref_b
+        k_ms = time_ms(lambda: splat_v1.splat_v1_fwd(*args), reps)
+        kb_ms = time_ms(lambda: splat_v1.splat_v1_bwd(*bargs), reps)
+    # The least the card could take: the (gaussian, pixel) pairs that need
+    # evaluating -- each mask-active (tile, block) pair's live rows (op >
+    # 0) times the tile's pixels inside the frame -- at K9a's (K9b's)
+    # operations each, against gdata and the mask read once and the
+    # (8, hw_pad) sums written once (K9b: g8 read once and the (n_pad, 16)
+    # rows written once). pairs_evaluated is what the kernels run: every
+    # row of each active block on every pixel of the tile.
+    live = (gdata[:, 5] > 0).to(torch.int64).reshape(-1, nb).sum(dim=1)
+    tile_px = torch.clamp(hw - tp * torch.arange(
+        mask.shape[0], device=mask.device), 0, tp)
+    active = mask.to(torch.int64)
+    alive_pairs = int(((active * live[None, :]).sum(dim=1) * tile_px).sum())
+    pairs = int(active.sum()) * nb * tp
+    in_bytes = gdata.numel() * 4 + mask.numel()
+    bounds = {}
+    for kind, flops, nbytes in (
+            ("", V1_FWD_FLOPS_PER_PAIR, in_bytes + 8 * hw_pad * 4),
+            ("bwd_", V1_BWD_FLOPS_PER_PAIR,
+             in_bytes + 8 * hw_pad * 4 + gdata.numel() * 4)):
+        ops_ms = 1e3 * flops * alive_pairs / F32_FLOPS_PER_S
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        bounds[f"{kind}bound_ms"] = max(ops_ms, bytes_ms)
+        bounds[f"{kind}bound_by"] = ("operations" if ops_ms >= bytes_ms
+                                     else "bytes")
+    case = {"case": name, "n_pad": gdata.shape[0], "nb": nb, "tp": tp,
+            "width": width, "height": height, "tiles": mask.shape[0],
+            "blocks": mask.shape[1], "active_pairs": int(active.sum()),
+            "mask_density": float(active.sum()) / mask.numel(),
+            "pairs_evaluated": pairs, "alive_pairs": alive_pairs,
+            "max_abs_err": err, "max_abs_ref": float(acc.abs().max()),
+            "ms": k_ms, "plain_ms": p_ms, "bwd_max_abs_err": err_b,
+            "bwd_ms": kb_ms, "bwd_plain_ms": pb_ms, **bounds}
+    if dense:
+        case.update(v1_vs_v2(name, s, height, width, acc, seed))
+    else:
+        case.update(bands_timed(s, height, width, acc, g8, reps))
+    log("v1 case " + json.dumps(case))
+    return case
+
+
+def bands_timed(s, height: int, width: int, acc_v1, g8, reps: int) -> dict:
+    """K5 and K6 on the band staging of the same y-sorted splats and
+    cotangent as a v1 case: CUDA-event medians, and K5's largest difference
+    from K9a's sums (acc_v1)."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import splat_v2
+    from tpu_gaussians_torch.ops import splat
+
+    hw = height * width
+    with torch.no_grad():
+        st = splat._v2_prep(s, height, width)
+        check(st.hw_pad == g8.shape[1], "band and tile padding differ")
+        args = (st.lo, st.cnt, st.gdata, st.hw_pad, width, st.nb)
+        acc_v2 = splat_v2.splat_v2_fwd(*args)
+        err = float((acc_v1[:, :hw] - acc_v2[:, :hw]).abs().max())
+        k5_ms = time_ms(lambda: splat_v2.splat_v2_fwd(*args), reps, 1)
+        bargs = (st.lo, st.cnt, st.gdata, g8, st.hw_pad, width, st.nb)
+        k6_ms = time_ms(lambda: splat_v2.splat_v2_bwd(*bargs), reps, 1)
+    return {"band_blocks_in_ranges": int(st.cnt.to(torch.int64).sum()),
+            "k5_ms": k5_ms, "k6_ms": k6_ms, "k5_vs_k9a_max_abs_err": err}
+
+
+def route_grads(s, height: int, width: int, g_out, max_n_pad):
+    """splat_accumulate(axis=False)'s sums and the gradients of sum(acc *
+    g_out) in px, py, conic_a, conic_b, conic_c, op and feats, with the
+    route thresholds V2_MAX_N_PAD_{FWD,BWD} set to max_n_pad (fwd, bwd),
+    or at their defaults for None."""
+    from tpu_gaussians_torch.ops import splat
+
+    saved = (splat.V2_MAX_N_PAD_FWD, splat.V2_MAX_N_PAD_BWD)
+    if max_n_pad is not None:
+        splat.V2_MAX_N_PAD_FWD, splat.V2_MAX_N_PAD_BWD = max_n_pad
+    try:
+        cols = [t.detach().clone().requires_grad_(True) for t in (
+            s.px, s.py, s.conic_a, s.conic_b, s.conic_c, s.op_eff, s.feats)]
+        acc = splat.splat_accumulate(splat._columns(*cols), height, width,
+                                     axis=False)
+        (acc * g_out).sum().backward()
+    finally:
+        splat.V2_MAX_N_PAD_FWD, splat.V2_MAX_N_PAD_BWD = saved
+    return [acc.detach()] + [c.grad for c in cols]
+
+
+def compare_routes(name: str, what: str, got, ref) -> dict:
+    """route_grads' outputs against another route's: the sums at rtol 1e-4
+    / atol 1e-5, the gradients at the sorted-gradient tolerance (rtol 2e-3,
+    atol 2e-4 times the largest magnitude). Raises on a disagreement;
+    returns each output's largest difference."""
+    import torch
+
+    errs = {}
+    for k, a, b in zip(("acc", "px", "py", "conic_a", "conic_b", "conic_c",
+                        "op", "feats"), got, ref):
+        if k == "acc":
+            ok = bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5))
+        else:
+            ok = bool(torch.allclose(a, b, rtol=2e-3,
+                                     atol=2e-4 * float(b.abs().max())))
+        errs[k] = float((a - b).abs().max())
+        check(ok and bool(torch.isfinite(a).all()),
+              f"{name}: {k} through {what} disagree (max abs err "
+              f"{errs[k]}, scale {float(b.abs().max())})")
+    return errs
+
+
+def v1_vs_v2(name: str, s, height: int, width: int, acc_v1, seed: int):
+    """The tile grid (K9a/K9b) against the bands (K5/K6 and the post-pass)
+    on the same y-sorted splats: K9a's sums against K5's, then
+    splat_accumulate(axis=False)'s values and gradients of sum(acc * g)
+    with the route thresholds at 0 (both directions on the tile grid)
+    against the defaults (both on the bands at this n)."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import splat_v2
+    from tpu_gaussians_torch.ops import splat
+
+    hw = height * width
+    n = s.px.shape[0]
+    check(splat._choose_v2(n, False) and splat._choose_v2(n, True),
+          f"{name}: {n} gaussians do not take the bands by default")
+    with torch.no_grad():
+        st = splat._v2_prep(s, height, width)
+        acc_v2 = splat_v2.splat_v2_fwd(st.lo, st.cnt, st.gdata, st.hw_pad,
+                                       width, st.nb)
+    err_f = float((acc_v1[:, :hw] - acc_v2[:, :hw]).abs().max())
+    check(bool(torch.allclose(acc_v1[:, :hw], acc_v2[:, :hw], rtol=1e-4,
+                              atol=1e-5)),
+          f"{name}: K9a and K5 disagree (max abs err {err_f})")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    g_out = torch.randn((hw, 5), generator=gen, device="cuda")
+    errs = compare_routes(name, "K9a/K9b and through K5/K6",
+                          route_grads(s, height, width, g_out, (0, 0)),
+                          route_grads(s, height, width, g_out, None))
+    return {"v1_vs_v2_fwd_max_abs_err": err_f,
+            "v1_vs_v2_grad_max_abs_err": errs}
+
+
+def mixed_route_check(name: str, g, view, proj, side: int, seed: int):
+    """One view of a scene between JAX's two v2 sizes through the default
+    route (K5 forward, K9b backward on a restaging of the saved columns)
+    against both directions on the tile grid (K9a, K9b on the forward's
+    staging): sums and gradients of sum(acc * g) at compare_routes'
+    tolerances, and whether the gradients came out bit for bit equal (the
+    same columns staged the same way for the same K9b)."""
+    import torch
+
+    from tpu_gaussians_torch.ops import splat
+    from tpu_gaussians_torch.ops.common import prepare_splats
+
+    with torch.no_grad():
+        s = splat.y_sorted(prepare_splats(g, view, proj, side, side,
+                                          footprint="ewa"))
+    n = s.px.shape[0]
+    check(splat._choose_v2(n, False) and not splat._choose_v2(n, True),
+          f"{name}: {n} gaussians do not take the mixed route")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    g_out = torch.randn((side * side, 5), generator=gen, device="cuda")
+    mixed = route_grads(s, side, side, g_out, None)
+    tiles = route_grads(s, side, side, g_out, (0, 0))
+    errs = compare_routes(name, "K5/K9b (restaged) and through K9a/K9b",
+                          mixed, tiles)
+    out = {"case": name, "n": n, "width": side, "height": side,
+           "max_abs_err": errs,
+           "grads_bit_identical": all(bool(torch.equal(a, b))
+                                      for a, b in zip(mixed[1:], tiles[1:]))}
+    log("mixed route " + json.dumps(out))
+    return out
+
+
+def binned_dense_check(name: str, g, c, side: int, footprint: str) -> dict:
+    """One view at side x side through render(accum_binned="on": K8a, or
+    K7a for the axis footprint) against render(accum_binned="off": K5, or
+    K1). With nothing dropped (every overflow stat 0; the tile capacity
+    raised to n if one is not) the image and alpha agree within rtol 1e-4 /
+    atol 1e-5."""
+    import torch
+
+    from tpu_gaussians_torch.core.types import RenderConfig
     from tpu_gaussians_torch.ops.dispatch import render, render_accum
 
-    n = 12_288
-    quats = np.random.default_rng(seed + 4).normal(size=(n, 4))
-    g = make_gaussians(**scene_arrays(n, seed + 4),
-                       quats=quats.astype(np.float32), device="cuda")
-    cfg = RenderConfig(width=side, height=side, mode="accum", footprint="ewa",
-                       return_aux=True, impl="tiled")
-    c = cams[0]
+    n = g.capacity
+    cfg = RenderConfig(width=side, height=side, mode="accum",
+                       footprint=footprint, return_aux=True, impl="tiled")
     with torch.no_grad():
-        stats = render_accum(g, c.view, c.proj, cfg.replace(
-            accum_binned="on"), return_stats=True)[3]
-        stats = {k: int(v) for k, v in stats.items()}
+        first = {k: int(v) for k, v in render_accum(
+            g, c.view, c.proj, cfg.replace(accum_binned="on"),
+            return_stats=True)[3].items()}
+        stats = first
         if stats["dropped_pairs"] or stats["full_tiles"]:
             cfg = cfg.replace(accum_tile_capacity=n)
             stats = {k: int(v) for k, v in render_accum(
                 g, c.view, c.proj, cfg.replace(accum_binned="on"),
                 return_stats=True)[3].items()}
-        check(not any(stats.values()), f"binned vs dense: the binner "
-              f"dropped work ({stats})")
+        check(not any(stats.values()), f"{name}: the binner dropped work "
+              f"({stats})")
         on = render(g, c, cfg.replace(accum_binned="on"))
         off = render(g, c, cfg.replace(accum_binned="off"))
     errs = []
     for a, b, what in zip(on[:2], off[:2], ("image", "alpha")):
-        check(bool(torch.isfinite(a).all()), f"binned vs dense: non-finite "
-              f"{what}")
+        check(bool(torch.isfinite(a).all()), f"{name}: non-finite {what}")
         errs.append(float((a - b).abs().max()))
         check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5)),
-              f"binned vs dense: {what} disagrees (max abs err {errs[-1]})")
-    log("binned vs dense " + json.dumps({
-        "n": n, "side": side, "tile_capacity": cfg.accum_tile_capacity,
-        "stats": stats, "image_max_abs_err": errs[0],
-        "alpha_max_abs_err": errs[1]}))
+              f"{name}: {what} disagrees (max abs err {errs[-1]})")
+    out = {"case": name, "footprint": footprint, "n": n, "side": side,
+           "stats_default_capacity": first,
+           "tile_capacity": cfg.accum_tile_capacity, "stats": stats,
+           "image_max_abs_err": errs[0], "alpha_max_abs_err": errs[1]}
+    log("binned vs dense " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -980,6 +1297,7 @@ def main() -> int:
     from tpu_gaussians_torch.models.gaussian_model import (
         activate, raw_from_gaussians)
     from tpu_gaussians_torch.ops import sorted as tiled
+    from tpu_gaussians_torch.ops import splat
     from tpu_gaussians_torch.ops.common import prepare_splats
     from tpu_gaussians_torch.ops.projection import camera_z
     from tpu_gaussians_torch.utils.config import FitConfig
@@ -1188,7 +1506,7 @@ def main() -> int:
                                 args.seed)]
     del state_b
     g_trained = activate(state_e.raw)
-    del state_e, raw_e, targets_s, masks_s
+    del state_e, raw_e
     bwd_cases = [sorted_bwd_case(f"100k_512x512_{fp}", g_trained,
                                  cams_s.view[0], cams_s.proj[0], side, side,
                                  fp, pair_k_s, args.seed)
@@ -1202,7 +1520,14 @@ def main() -> int:
     del g_trained, g_e
 
     # 12. binned vs dense: K8a against K5 through render at ~12k gaussians
-    binned_dense_check(cams_s, side, args.seed)
+    n_bd = 12_288
+    g_bd = make_gaussians(**scene_arrays(n_bd, args.seed + 4),
+                          quats=np.random.default_rng(args.seed + 4).normal(
+                              size=(n_bd, 4)).astype(np.float32),
+                          device="cuda")
+    dense_checks = [binned_dense_check("12288_ewa_512x512", g_bd, cams_s[0],
+                                       side, "ewa")]
+    del g_bd
 
     # 13. fit ewa accum: the dense EWA accumulation training main path
     # (capacity 3000: auto -> accum, n < BINNED_MIN_N -> K5/K6), its step
@@ -1237,6 +1562,119 @@ def main() -> int:
     binned_cases.insert(0, binned_case(
         "flagship_ewa_binned_128x128_fitted", activate(raw_eb), cams.view[0],
         cams.proj[0], 128, 128, args.seed))
+    # 15. fit axis binned: the flagship recipe under --accum_binned on ->
+    # the separable tile-binned K7a/K7b for training; the preview takes
+    # JAX's preview config (accum_binned auto: the band kernel K1)
+    fit_ab = fit_phase(Path(tmp.name), "fit_axis_binned",
+                       AXIS_BINNED_FIT_ARGS,
+                       {"binned_sep_fwd": 900, "binned_sep_bwd": 900,
+                        "splat_sep_fwd": 1})
+    check(fit_ab["binner_dropped_pairs_max"] == 0,
+          f"fit_axis_binned dropped pairs "
+          f"({fit_ab['binner_dropped_pairs_max']} in a step)")
+    raw_ab = raw_from_gaussians(load_gaussians_npz(
+        Path(tmp.name) / "fit_axis_binned" / "gaussians_fitted.npz",
+        device="cuda"), capacity=3000)
+    axis_binned = RenderConfig(mode="accum", accum_binned="on")
+    flag_axis_binned_steps, _ = train_steps(raw_ab, cams, targets, masks,
+                                            steps=20, profile=10,
+                                            render_config=axis_binned)
+    log("fit step profile, flagship axis binned "
+        + json.dumps(flag_axis_binned_steps))
+    sep_binned_cases = [binned_case(
+        "flagship_axis_binned_128x128_fitted", activate(raw_ab), cams.view[0],
+        cams.proj[0], 128, 128, args.seed, footprint="axis")]
+
+    # 16. at scale, axis binned: phase 8's 100k axis scene and views under
+    # accum_binned "on"; K7a/K7b against their twins on view 0's lists;
+    # view 0 through K7a against K1
+    arr_a = {k: v for k, v in arr_s.items() if k != "quats"}
+    scale_axis_binned_steps, state_ab = train_steps(
+        raw_from_gaussians(make_gaussians(**arr_a, device="cuda"),
+                           capacity=n_s),
+        cams_s, targets_s, masks_s, steps=10, profile=3,
+        render_config=axis_binned)
+    log("fit step profile, 100k 512x512 x4 axis binned "
+        + json.dumps(scale_axis_binned_steps))
+    g_ab = activate(state_ab.raw)
+    del state_ab
+    sep_binned_cases.append(binned_case(
+        "100k_512x512_axis", g_ab, cams_s.view[0], cams_s.proj[0], side,
+        side, args.seed, footprint="axis"))
+    dense_checks.append(binned_dense_check("100k_axis_512x512", g_ab,
+                                           cams_s[0], side, "axis"))
+    del g_ab
+
+    # 17. at 1M, EWA exact: accum_binned "off" above both of JAX's v2
+    # sizes -> the tile grid K9a forward and K9b backward, 4 launches each
+    # per step and no K5/K6
+    n_x = 1_000_000
+    arr_x = scene_arrays(n_x, args.seed + 1)
+    arr_x["quats"] = np.random.default_rng(args.seed + 1).normal(
+        size=(n_x, 4)).astype(np.float32)
+    check(not splat._choose_v2(n_x, False) and not splat._choose_v2(
+        n_x, True), "1M gaussians do not take the tile grid")
+    exact = RenderConfig(mode="accum", footprint="ewa", accum_binned="off")
+    reset_launches()
+    scale_exact_steps, state_x = train_steps(
+        raw_from_gaussians(make_gaussians(**arr_x, device="cuda"),
+                           capacity=n_x),
+        cams_s, targets_s, masks_s, steps=3, profile=1, render_config=exact)
+    exact_launches = read_launches()
+    calls = 1 + 3 + 1                      # warm-up, timed, profiled
+    want = {k: 4 * calls if k in ("splat_v1_fwd", "splat_v1_bwd") else 0
+            for k in exact_launches}
+    log(f"scale ewa exact main path: kernel launches {exact_launches}")
+    check(exact_launches == want, f"scale ewa exact: kernel launches "
+          f"{exact_launches} in {calls} steps of 4 views, expected {want}")
+    scale_exact_steps["launches"] = exact_launches
+    log("fit step profile, 1M 512x512 x4 EWA exact "
+        + json.dumps(scale_exact_steps))
+    g_x = activate(state_x.raw)
+    del state_x, arr_x
+
+    # 18. K9a/K9b against their twins: at 1M on view 0 (one twin call
+    # each; K5/K6 timed there too), and at 8,192 EWA gaussians on 512x512,
+    # where K9 is also held against K5/K6
+    v1_cases = [v1_case("1M_ewa_512x512", g_x, cams_s.view[0],
+                        cams_s.proj[0], side, side, args.seed, reps=5,
+                        plain_reps=1)]
+    del g_x
+    v1_cases.append(v1_case("8192_ewa_512x512", make_gaussians(
+        **scene_arrays(8192, args.seed + 3),
+        quats=np.random.default_rng(args.seed + 3).normal(
+            size=(8192, 4)).astype(np.float32), device="cuda"),
+        cams_s.view[0], cams_s.proj[0], side, side, args.seed, dense=True))
+
+    # 19. between JAX's two v2 sizes (500,000 EWA gaussians), the mixed
+    # route: the forward on the bands (K5) and the backward on the tile
+    # grid (K9b, restaged from the saved columns), 4 launches each per step
+    # and no other splat kernel; then view 0's gradients against both
+    # directions on the tile grid
+    n_m = 500_000
+    arr_m = scene_arrays(n_m, args.seed + 4)
+    arr_m["quats"] = np.random.default_rng(args.seed + 4).normal(
+        size=(n_m, 4)).astype(np.float32)
+    reset_launches()
+    mixed_steps, state_m = train_steps(
+        raw_from_gaussians(make_gaussians(**arr_m, device="cuda"),
+                           capacity=n_m),
+        cams_s, targets_s, masks_s, steps=1, profile=1, render_config=exact)
+    mixed_launches = read_launches()
+    calls_m = 1 + 1 + 1                    # warm-up, timed, profiled
+    want = {k: 4 * calls_m if k in ("splat_v2_fwd", "splat_v1_bwd") else 0
+            for k in mixed_launches}
+    log(f"scale ewa mixed main path: kernel launches {mixed_launches}")
+    check(mixed_launches == want, f"scale ewa mixed: kernel launches "
+          f"{mixed_launches} in {calls_m} steps of 4 views, expected {want}")
+    mixed_steps["launches"] = mixed_launches
+    log("fit step profile, 500k 512x512 x4 EWA exact (mixed route) "
+        + json.dumps(mixed_steps))
+    g_m = activate(state_m.raw)
+    del state_m, arr_m
+    mixed_check = mixed_route_check("500k_ewa_512x512", g_m, cams_s.view[0],
+                                    cams_s.proj[0], side, args.seed)
+    del g_m
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"],
@@ -1245,7 +1683,7 @@ def main() -> int:
         f"{clocks.stdout.strip()}")
     tmp.cleanup()
 
-    # 11. report
+    # 20. report
     def row(name, replaces, launches_, cases_, main_, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"tpu_gaussians_torch/csrc/{name}.cu",
@@ -1281,13 +1719,16 @@ def main() -> int:
     kernels.append(row("splat_v2_fwd", "tpu_gaussians/ops/pallas/splat.py:452",
                        fit_ea["launches"]["splat_v2_fwd"], v2_cases, v2_main,
                        launches_fit_sorted_preview=fit_s["launches"][
-                           "splat_v2_fwd"]))
+                           "splat_v2_fwd"],
+                       launches_mixed_route=mixed_launches["splat_v2_fwd"],
+                       ms_1M_ewa_view0=v1_cases[0]["k5_ms"]))
     v2b = [{"case": c["case"], "ms": c["bwd_ms"],
             "plain_ms": c["bwd_plain_ms"], "bound_ms": c["bwd_bound_ms"],
             "bound_by": c["bwd_bound_by"],
             "max_abs_err": c["bwd_max_abs_err"]} for c in v2_cases]
     kernels.append(row("splat_v2_bwd", "tpu_gaussians/ops/pallas/splat.py:510",
-                       fit_ea["launches"]["splat_v2_bwd"], v2b, v2b[0]))
+                       fit_ea["launches"]["splat_v2_bwd"], v2b, v2b[0],
+                       ms_1M_ewa_view0=v1_cases[0]["k6_ms"]))
     for name, kind_, line in (("binned_fwd", "fwd", 135),
                               ("binned_bwd", "bwd", 164)):
         bc = [{"case": c["case"], "ms": c[f"{kind_}_ms"],
@@ -1297,9 +1738,31 @@ def main() -> int:
                "max_abs_err": c[f"{kind_}_max_abs_err"]} for c in binned_cases]
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/binned.py:{line}",
                            fit_eb["launches"][name], bc, bc[0]))
+    for name, kind_, line in (("binned_sep_fwd", "fwd", 258),
+                              ("binned_sep_bwd", "bwd", 277)):
+        bc = [{"case": c["case"], "ms": c[f"{kind_}_ms"],
+               "plain_ms": c[f"{kind_}_plain_ms"],
+               "bound_ms": c[f"{kind_}_bound_ms"],
+               "bound_by": c[f"{kind_}_bound_by"],
+               "max_abs_err": c[f"{kind_}_max_abs_err"]}
+              for c in sep_binned_cases]
+        kernels.append(row(name, f"tpu_gaussians/ops/pallas/binned.py:{line}",
+                           fit_ab["launches"][name], bc, bc[0]))
+    for name, kind_, line in (("splat_v1_fwd", "", 196),
+                              ("splat_v1_bwd", "bwd_", 850)):
+        vc = [{"case": c["case"], "ms": c[f"{kind_}ms"],
+               "plain_ms": c[f"{kind_}plain_ms"],
+               "bound_ms": c[f"{kind_}bound_ms"],
+               "bound_by": c[f"{kind_}bound_by"],
+               "max_abs_err": c[f"{kind_}max_abs_err"]} for c in v1_cases]
+        kernels.append(row(name, f"tpu_gaussians/ops/pallas/splat.py:{line}",
+                           exact_launches[name], vc, vc[0],
+                           launches_per_step=exact_launches[name] // calls,
+                           launches_mixed_route=mixed_launches[name]))
     check([k["name"] for k in kernels] == [
         "sorted_fwd", "splat_sep_fwd", "splat_sep_bwd", "sorted_bwd",
-        "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd"]
+        "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd",
+        "binned_sep_fwd", "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd"]
         and all(k["launches"] > 0 for k in kernels),
         "a kernel of the report was never launched on a main path")
     log(json.dumps({"kernels": kernels}))

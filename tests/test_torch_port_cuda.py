@@ -28,7 +28,12 @@ Tolerances:
   times the largest magnitude of the output column; bit-identical across
   two launches.
 - EWA accumulation render gradients (K5/K6, K8a/K8b) against the plain
-  renderer: rtol 5e-4 / atol 1e-5, as the axis footprint's."""
+  renderer: rtol 5e-4 / atol 1e-5, as the axis footprint's.
+- binned_sep_fwd (K7a) and splat_v1_fwd (K9a): rtol 1e-5 / atol 1e-5, as
+  K8a and K5; binned_sep_bwd (K7b) and splat_v1_bwd (K9b): as K2, and
+  bit-identical across two launches; the axis binned render (K7a/K7b) and
+  the EWA render on the tile grid (K9a/K9b) and their gradients against
+  the plain renderer: rtol 5e-4 / atol 1e-5, as the other accum renders."""
 
 import numpy as np
 import pytest
@@ -37,7 +42,7 @@ import torch
 from tpu_gaussians_torch.core import camera as tcam
 from tpu_gaussians_torch.core.types import RenderConfig, gaussians_from_numpy
 from tpu_gaussians_torch.kernels import (
-    binned, build, sorted_bwd, sorted_fwd, splat_sep, splat_v2)
+    binned, build, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2)
 from tpu_gaussians_torch.ops import splat as tsplat
 from tpu_gaussians_torch.ops.common import SplatInputs
 from tpu_gaussians_torch.ops.dispatch import render
@@ -220,7 +225,8 @@ def test_build_all_builds_every_kernel(cuda):
     build.build_all()
     for name in ("sorted_fwd", "sorted_bwd", "splat_sep_fwd",
                  "splat_sep_bwd", "splat_v2_fwd", "splat_v2_bwd",
-                 "binned_fwd", "binned_bwd"):
+                 "binned_fwd", "binned_bwd", "binned_sep_fwd",
+                 "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd"):
         assert name in build.KERNELS and build.library_path(name).exists()
 
 
@@ -366,7 +372,8 @@ def test_binned_kernels_match_plain_twins(cuda, cnt):
     out = binned.binned_bwd(gdense, cnt_t, g8, TILES_X)
     again = binned.binned_bwd(gdense, cnt_t, g8, TILES_X)
     torch.cuda.synchronize()
-    assert binned.launches == {"binned_fwd": before["binned_fwd"] + 1,
+    assert binned.launches == {**before,
+                               "binned_fwd": before["binned_fwd"] + 1,
                                "binned_bwd": before["binned_bwd"] + 2}
     assert torch.equal(out, again)          # deterministic: no atomics
     ref = binned.binned_fwd_plain(gdense, cnt_t, TILES_X)
@@ -434,6 +441,114 @@ def test_accum_render_grads_match_plain_renderer(cuda):
         img, alpha, depth = render(g, c, cfg.replace(impl=impl))
         (img - target).abs().mean().backward()
         outs[impl] = [img.detach(), alpha.detach()] + [t.grad for t in leaves]
+    for a, b in zip(outs["tiled"], outs["torch"]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=5e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cnt", [(1024, 600, 0, 300), (1, 512, 513, 1024)],
+                         ids=["full_partial_empty_short", "chunk_edges"])
+def test_binned_sep_kernels_match_plain_twins(cuda, cnt):
+    """K7a and K7b on axis lists (conic b = 0) with a tile at cap, one
+    empty, and counts on either side of a 512-slot chunk edge."""
+    gdense, cnt_t = synthetic_lists(True, device=cuda, cnt=cnt)
+    before = dict(binned.launches)
+    acc = binned.binned_sep_fwd(gdense, cnt_t, TILES_X)
+    g8 = torch.randn(acc.shape, generator=torch.Generator().manual_seed(9)
+                     ).to(cuda)
+    out = binned.binned_sep_bwd(gdense, cnt_t, g8, TILES_X)
+    again = binned.binned_sep_bwd(gdense, cnt_t, g8, TILES_X)
+    torch.cuda.synchronize()
+    assert binned.launches == {
+        **before, "binned_sep_fwd": before["binned_sep_fwd"] + 1,
+        "binned_sep_bwd": before["binned_sep_bwd"] + 2}
+    assert torch.equal(out, again)          # deterministic: no atomics
+    ref = binned.binned_sep_fwd_plain(gdense, cnt_t, TILES_X)
+    np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    ref_b = binned.binned_sep_bwd_plain(gdense, cnt_t, g8, TILES_X)
+    assert_moments_close(out.cpu(), ref_b.cpu())
+    rows = out.reshape(4, CAP, 16).cpu()
+    for t, c in enumerate(cnt):              # chunks at or past cnt: zero
+        assert not rows[t, -(-c // 512) * 512:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(V2_CASES))
+def test_splat_v1_kernels_match_plain_twins(cuda, case):
+    """K9a, and K9b on a seeded cotangent (zero beyond the frame and in
+    rows 5-7), on the tile grid's staging of V2_CASES' general conics."""
+    kw = V2_CASES[case]
+    n, height, width = kw["n"], kw["height"], kw["width"]
+    cols = list(synthetic_splats(n, height, width, seed=4))
+    rng = np.random.default_rng(5)
+    cols[3] = (rng.uniform(-0.9, 0.9, n) * np.sqrt(cols[2] * cols[4])
+               ).astype(np.float32)
+    mask, gdata, nb, tp, hw_pad = tsplat._v1_prep(
+        tsplat.y_sorted(splat_inputs(cols, cuda)), height, width)
+    g8 = torch.zeros((8, hw_pad), device=cuda)
+    g8[:5, :height * width] = torch.randn(
+        (5, height * width), generator=torch.Generator().manual_seed(7)).to(
+            cuda)
+    before = dict(splat_v1.launches)
+    acc = splat_v1.splat_v1_fwd(mask, gdata, hw_pad, width, nb, tp)
+    out = splat_v1.splat_v1_bwd(mask, gdata, g8, hw_pad, width, nb, tp)
+    again = splat_v1.splat_v1_bwd(mask, gdata, g8, hw_pad, width, nb, tp)
+    torch.cuda.synchronize()
+    assert splat_v1.launches == {
+        "splat_v1_fwd": before["splat_v1_fwd"] + 1,
+        "splat_v1_bwd": before["splat_v1_bwd"] + 2}
+    assert torch.equal(out, again)          # deterministic: no atomics
+    ref = splat_v1.v1_fwd_plain(mask, gdata, hw_pad, width, nb, tp)
+    np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    ref_b = splat_v1.v1_bwd_plain(mask, gdata, g8, hw_pad, width, nb, tp)
+    assert_moments_close(out.cpu(), ref_b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["axis_binned", "ewa_mixed", "ewa_v1"])
+def test_accum_render_grads_on_new_routes_match_plain_renderer(
+        cuda, monkeypatch, route):
+    """render(mode="accum") values and gradients through the axis
+    footprint's binned K7a/K7b (accum_binned "on"), and the EWA footprint
+    with the forward on K5 and the backward on K9b, or both on K9a/K9b
+    (the route thresholds lowered to 0), against the plain renderer."""
+    if route == "ewa_mixed":
+        monkeypatch.setattr(tsplat, "V2_MAX_N_PAD_BWD", 0)
+    elif route == "ewa_v1":
+        monkeypatch.setattr(tsplat, "V2_MAX_N_PAD_FWD", 0)
+        monkeypatch.setattr(tsplat, "V2_MAX_N_PAD_BWD", 0)
+    rng = np.random.default_rng(6)
+    n, w, h = 3000, 200, 72
+    arr = dict(
+        means=rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32),
+        scales=rng.uniform(0.01, 0.06, (n, 3)).astype(np.float32),
+        opacities=rng.uniform(0.1, 0.9, (n,)).astype(np.float32),
+        colors=rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    if route != "axis_binned":
+        arr["quats"] = rng.normal(size=(n, 4)).astype(np.float32)
+    target = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(
+        np.float32)).to(cuda)
+    c = tcam.orbit_cameras(3, w, h, device=cuda)[1]
+    cfg = RenderConfig(width=w, height=h, mode="accum", return_aux=True,
+                       footprint="axis" if route == "axis_binned" else "ewa",
+                       accum_binned="on" if route == "axis_binned" else "off")
+    before = {**binned.launches, **splat_v1.launches}
+    outs = {}
+    for impl in ("tiled", "torch"):
+        g = gaussians_from_numpy(arr, device=cuda)
+        leaves = [t.requires_grad_(True) for t in (
+            g.means, g.scales, g.opacities, g.colors)]
+        img, alpha, _ = render(g, c, cfg.replace(impl=impl))
+        (img - target).abs().mean().backward()
+        outs[impl] = [img.detach(), alpha.detach()] + [t.grad for t in leaves]
+    after = {**binned.launches, **splat_v1.launches}
+    grew = sorted(k for k in after if after[k] > before[k])
+    assert grew == {"axis_binned": ["binned_sep_bwd", "binned_sep_fwd"],
+                    "ewa_mixed": ["splat_v1_bwd"],
+                    "ewa_v1": ["splat_v1_bwd", "splat_v1_fwd"]}[route]
     for a, b in zip(outs["tiled"], outs["torch"]):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=5e-4, atol=1e-5)

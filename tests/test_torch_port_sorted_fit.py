@@ -233,29 +233,24 @@ def test_ewa_accum_render_matches_jax(n):
 
 
 def test_trainer_refuses_unported_kernels_up_front():
-    """EWA accumulation training, dense (K5/K6) or tile-binned (K8), runs;
-    only the axis footprint's binned accumulation (K7, accum mode under
-    --accum_binned on) is refused before any step, naming slice 5."""
+    """Every kernel is ported, so no fit is refused for one: EWA
+    accumulation training, dense (K5/K6) or tile-binned (K8), and the axis
+    footprint's binned accumulation (K7, accum mode under --accum_binned
+    on), tiled or through the plain renderer, each take a step."""
     targets = np.zeros((1, 16, 16, 3), np.float32)
     cams = tcam.orbit_cameras(1, 16, 16, device="cpu")
     for kw in (dict(footprint="ewa"),
                dict(footprint="ewa", max_gaussians=10_240,
                     render_mode="accum"),
                dict(footprint="ewa", accum_binned="on"),
-               dict(accum_binned="on", render_mode="sorted")):
+               dict(accum_binned="on", render_mode="sorted"),
+               dict(accum_binned="on"),
+               dict(accum_binned="on", impl="torch")):
         cfg = tconfig.FitConfig(width=16, height=16, iters=1,
                                 num_gaussians=10, **{"max_gaussians": 16,
                                                      **kw})
         res = ttrainer.fit(cfg, targets, cams, device="cpu")
         assert len(res.loss_log) == 1 and np.isfinite(res.loss_log).all()
-    cfg = tconfig.FitConfig(width=16, height=16, iters=1, num_gaussians=10,
-                            max_gaussians=16, accum_binned="on")
-    with pytest.raises(NotImplementedError, match="slice 5") as err:
-        ttrainer.fit(cfg, targets, cams, device="cpu")
-    assert "K7" in str(err.value)
-    cfg = tconfig.FitConfig(width=16, height=16, iters=1, num_gaussians=10,
-                            max_gaussians=16, accum_binned="on", impl="torch")
-    assert len(ttrainer.fit(cfg, targets, cams, device="cpu").loss_log) == 1
 
 
 def test_fit_cli_trains_sorted_with_the_axis_footprint(tmp_path, capsys):

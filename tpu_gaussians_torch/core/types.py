@@ -150,9 +150,9 @@ class RenderConfig:
     The sorted_* knobs act on the tiled path only (see ops/sorted.py).
     accum_binned picks the accumulation kernels of the tiled path: "auto"
     bins EWA at n >= ops.binned.BINNED_MIN_N, "on" always (the axis
-    footprint's binned kernels, K7, are not ported yet and raise), "off"
-    never. accum_tile_capacity (0 = auto) and accum_cull ("exact": the
-    W_CULL extent; "alpha": the 1e-5 extent) act on the binned path only.
+    footprint through the separable binned kernels K7), "off" never.
+    accum_tile_capacity (0 = auto) and accum_cull ("exact": the W_CULL
+    extent; "alpha": the 1e-5 extent) act on the binned path only.
     """
 
     width: int = 800

@@ -84,19 +84,6 @@ def _refuse_unported(config: FitConfig) -> None:
             "checkpoint slice")
 
 
-def _refuse_unported_kernels(config: FitConfig, mode: str) -> None:
-    """Refuse, before the first step, a fit that would train through a
-    kernel that is not ported yet: the axis footprint's tile-binned
-    accumulation (TPU K7, accum mode under --accum_binned on)."""
-    if (config.impl != "torch" and mode == "accum"
-            and config.footprint == "axis" and config.accum_binned == "on"):
-        raise NotImplementedError(
-            "accumulation training of the axis footprint under "
-            "--accum_binned on needs the separable tile-binned kernels (TPU "
-            "K7a/K7b), ported in slice 5; use --accum_binned auto or off, "
-            "--footprint ewa, or --impl torch")
-
-
 def fit(
     config: FitConfig,
     targets: np.ndarray,
@@ -149,7 +136,6 @@ def fit(
             return torch.randn((capacity, 3), generator=gen).to(dev)
 
     mode = resolve_render_mode(config, capacity)
-    _refuse_unported_kernels(config, mode)
     pair_k = config.sorted_pair_k
     if mode == "sorted" and pair_k == 0 and config.impl != "torch":
         # The budget measured at init (the generic k_pairs formula

@@ -30,7 +30,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNELS = ("sorted_fwd", "sorted_bwd", "splat_sep_fwd", "splat_sep_bwd",
-           "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd")
+           "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd",
+           "binned_sep_fwd", "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -10,11 +10,11 @@ overlaps are accumulated. With the default W_CULL extent and nothing
 dropped, the sum equals the dense path's to float tolerance.
 
 `_BinnedCore` runs K8a forward and K8b backward (kernels/binned.py) on the
-row-major per-slot table `index_select(pack_gdata(s), 0, slots)`; the
-O(slots) post-pass `ops/sorted.moment_postpass` gives the slot rows'
-gradients, and the backward of `index_select` (an `index_add_`) sums them
-into the gaussians. The separable kernels of the axis footprint (TPU K7)
-are not ported yet.
+row-major per-slot table `index_select(pack_gdata(s), 0, slots)`, or for
+the axis footprint (conic b == 0) the separable K7a and K7b; the O(slots)
+post-pass (`ops/sorted.moment_postpass`, or `moment_postpass_opfold` after
+K7b) gives the slot rows' gradients, and the backward of `index_select`
+(an `index_add_`) sums them into the gaussians.
 """
 
 from __future__ import annotations
@@ -23,7 +23,9 @@ import sys
 
 import torch
 
-from tpu_gaussians_torch.kernels.binned import binned_bwd, binned_fwd
+from tpu_gaussians_torch.kernels.binned import (
+    binned_bwd, binned_fwd, binned_sep_bwd, binned_sep_fwd)
+from tpu_gaussians_torch.kernels.sorted_fwd import FEAT_PAD
 from tpu_gaussians_torch.ops.binning import (  # noqa: F401 (re-exported)
     ACCUM_K_MIN, ACCUM_PAIR_BUDGET, ALPHA_CUTOFF, NBS, TH, TWC, _round_up,
     bin_pairs_2d, k_pairs)
@@ -56,22 +58,43 @@ def default_tile_capacity(n: int, cutoff: float = W_CULL,
     return _round_up(tile_capacity, NBS)
 
 
+def moment_postpass_opfold(gdense: torch.Tensor,
+                           raw: torch.Tensor) -> torch.Tensor:
+    """K7b's raw slot rows [Mdx, Mdy, Mxx, 0, Myy, 0, g_featop(8), ...] ->
+    gradients of the gdense rows (`moment_postpass_opfold_t`, binned.py:
+    329-347): g_px = a Mdx, g_py = c Mdy, g_a = -Mxx/2, g_b = 0 (the axis
+    constant), g_c = -Myy/2, g_op = sum_f feats_f g_featop_f and
+    g_feat = op g_featop (the product rule of featsop = feats op)."""
+    a, c, op = gdense[:, 2], gdense[:, 4], gdense[:, 5]
+    feats = gdense[:, 6:6 + FEAT_PAD]
+    mdx, mdy, mxx, _, myy = raw[:, :5].unbind(dim=1)
+    g_featop = raw[:, 6:6 + FEAT_PAD]
+    head = torch.stack([a * mdx, c * mdy, -0.5 * mxx, torch.zeros_like(mdx),
+                        -0.5 * myy, (feats * g_featop).sum(dim=1)], dim=1)
+    return torch.cat([head, g_featop * op[:, None],
+                      torch.zeros_like(raw[:, 6 + FEAT_PAD:])], dim=1)
+
+
 class _BinnedCore(torch.autograd.Function):
-    """acc (8, n_tiles*2048) over the per-tile lists through K8a;
-    differentiable in gdense through K8b and the post-pass (`_binned_core`,
+    """acc (8, n_tiles*2048) over the per-tile lists through K8a, or K7a
+    when sep (the axis footprint); differentiable in gdense through K8b and
+    moment_postpass, or K7b and moment_postpass_opfold (`_binned_core`,
     binned.py:424-452)."""
 
     @staticmethod
-    def forward(ctx, gdense, cnt, tiles_x: int):
+    def forward(ctx, gdense, cnt, tiles_x: int, sep: bool):
         ctx.save_for_backward(gdense, cnt)
-        ctx.tiles_x = tiles_x
-        return binned_fwd(gdense, cnt, tiles_x)
+        ctx.tiles_x, ctx.sep = tiles_x, sep
+        return (binned_sep_fwd if sep else binned_fwd)(gdense, cnt, tiles_x)
 
     @staticmethod
     def backward(ctx, g_acc):
         gdense, cnt = ctx.saved_tensors
+        if ctx.sep:
+            raw = binned_sep_bwd(gdense, cnt, g_acc.contiguous(), ctx.tiles_x)
+            return moment_postpass_opfold(gdense, raw), None, None, None
         raw = binned_bwd(gdense, cnt, g_acc.contiguous(), ctx.tiles_x)
-        return moment_postpass(gdense, raw), None, None
+        return moment_postpass(gdense, raw), None, None, None
 
 
 def accum_lists(s: SplatInputs, height: int, width: int,
@@ -106,18 +129,11 @@ def splat_accumulate_binned(
 
     cutoff sets the binning extent: W_CULL (default) agrees with the dense
     kernels when nothing is dropped; ALPHA_CUTOFF drops the sub-1e-5 tails
-    at the extent level for ~3x fewer pairs. axis=True would take the
-    separable tile kernels (TPU K7), which are not ported yet."""
-    if axis:
-        raise NotImplementedError(
-            "the tile-binned accumulation of the axis footprint (TPU kernels "
-            "K7a/K7b, binned.py:_binned_fwd_kernel_sep / "
-            "_binned_bwd_kernel_sep) is ported in slice 5; use "
-            "accum_binned='auto' or 'off' (the dense band kernels), or "
-            "impl='torch'")
+    at the extent level for ~3x fewer pairs. axis=True is the caller's
+    promise that conic_b == 0: the separable tile kernels K7a/K7b."""
     gdense, cnt, tiles_x, tiles_y, stats = accum_lists(
         s, height, width, tile_capacity, cutoff)
-    acc = _BinnedCore.apply(gdense, cnt, tiles_x)
+    acc = _BinnedCore.apply(gdense, cnt, tiles_x, axis)
     full = crop_tiled_acc(acc, tiles_y, tiles_x, height, width)
     out = full[..., :FEAT_DIM].reshape(-1, FEAT_DIM)
     return (out, stats) if return_stats else out

@@ -7,9 +7,11 @@ two agree to float tolerance.
          separable band kernels K1/K2, the EWA footprint through the
          general-conic band kernels K5/K6; or, under accum_binned "on" or
          EWA at n >= BINNED_MIN_N under "auto", ops/binned.
-         splat_accumulate_binned through the tile-binned K8a/K8b (EWA
-         only: the axis footprint's K7 is not ported); all
-         differentiable. torch: plain_renderer.accumulate
+         splat_accumulate_binned through the tile-binned kernels, the
+         separable K7a/K7b for the axis footprint (reached only under
+         "on") and K8a/K8b for EWA; all differentiable. The dense EWA
+         route takes K5/K6 up to JAX's v2 sizes and the tile-grid K9a/K9b
+         above them (ops/splat._choose_v2). torch: plain_renderer.accumulate
   sorted tiled: binner + per-tile compositing kernels K3/K4
          (differentiable); torch: plain_renderer.composite_sorted
 """
