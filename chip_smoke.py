@@ -10,7 +10,9 @@ Phases, each of which fails the run by raising:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc for every kernel source, all started together; nvcc's
-              seconds and ptxas' register and shared-memory lines
+              seconds and ptxas' register and shared-memory lines; the count
+              of HMMA (tensor-core) instructions in K9b's SASS (cuobjdump),
+              which must not be 0
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -54,9 +56,11 @@ Phases, each of which fails the run by raising:
               quaternions), 4 views at 512x512, sorted with the measured
               pair budget: 10 train steps timed, a profile; K3, then K4 on
               K3's outputs, against their twins on the binner's lists, for
-              both footprints; sorted-render gradients against the plain
-              renderer on a small scene; K5 and K6 against their twins at
-              8,192 EWA gaussians on 512x512
+              both footprints, with the blocks K4's launch takes (more
+              than tiles; the grid of its kernel event in a torch.profiler
+              trace); sorted-render gradients against the plain renderer
+              on a small scene; K5 and K6 against their twins at 8,192 EWA
+              gaussians on 512x512
  11. scale ewa accum  the same 100k EWA scene and views in accum mode
               (n >= 10,240 under accum_binned "auto" -> tile-binned): 10
               train steps timed, a profile; K8a (binned_fwd), then K8b
@@ -99,7 +103,9 @@ Phases, each of which fails the run by raising:
               view, the route the threshold does not take) and at 8,192 EWA
               gaussians on 512x512, where K9a's sums are also held against
               K5's and splat_accumulate's gradients through K9a/K9b against
-              those through K5/K6
+              those through K5/K6; K9b's bound on this card (its products on
+              the tensor cores, the SM clock read while it runs) beside the
+              55-flop f32 one
  19. scale ewa mixed  500,000 EWA gaussians, the same views and config:
               between JAX's two v2 sizes, so the forward takes K5 and the
               backward K9b on a restaging of the saved columns; 1 train
@@ -143,10 +149,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
-# outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
+# outside the tensor cores, dense TF32 FLOP/s on the tensor cores, and the
+# SFU's exps per SM and clock (times the SMs and the SM clock nvidia-smi
+# reports during the run).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+SFU_EXP_PER_SM_CLOCK = 16
 # f32 operations per (slot, pixel) the compositing evaluates: the alpha
 # product and exponent terms, cutoff and clamp, T*a, four multiply-adds into
 # r, g, b, z (two each) and the transmittance update.
@@ -187,11 +197,28 @@ BINNED_SEP_FWD_FLOPS_PER_PAIR = 2 * 8
 BINNED_SEP_BWD_FLOPS_PER_PAIR = 2 * 2 * 8
 # Per (gaussian, pixel) pair of the active (tile, block) pairs in K9a
 # (csrc/splat_v1_fwd.cu): dx, dy, the Horner exponent (7), op * exp and 8
-# multiply-adds; in K9b (csrc/splat_v1_bwd.cu): dx, dy, the exponent (7),
-# op * exp, g_w (8 multiply-adds), g_e, exp(e) g_w, u and v, the five
-# moment sums (8) and g_feat (8 multiply-adds). The exps are not counted.
+# multiply-adds; in K9b's function with every term paid per pair and the
+# products on the CUDA cores: dx, dy, the exponent (7), op * exp, g_w (8
+# multiply-adds), g_e, exp(e) g_w, u and v, the five moment sums (8) and
+# g_feat (8 multiply-adds). The exps are not counted.
 V1_FWD_FLOPS_PER_PAIR = 26
 V1_BWD_FLOPS_PER_PAIR = 55
+# K9b's bound for a kernel that runs the two 8-wide products on the tensor
+# cores (csrc/splat_v1_bwd.cu does, as the TPU did on its matrix unit): the
+# largest of the elementwise f32 flops per pair at the f32 rate, the
+# products' 32 flops times 3 (the TF32 split that keeps f32 accuracy) at the
+# TF32 rate, one exp per pair at the SFU rate, and the bytes. The
+# elementwise work the function needs per pair, with the row-constant terms
+# (dy, b dy, c dy^2) paid once per row and op factored out of every sum
+# (g_e = op v; the dy moments are dy and dy^2 times per-row sums): dx (1),
+# e = fma(dx, fma(a, dx, b dy), c dy^2) (4), v = exp(e) g_w (1), u = v dx
+# (1), the sums of v and u (2) and of u dx (2): 11. The 55-flop f32 bound
+# above prices the products at the CUDA-core rate; it is printed beside
+# (bwd_bound_ms_55flop) so that runs before the tensor-core kernel stay
+# comparable.
+V1_BWD_PRODUCT_FLOPS_PER_PAIR = 32
+V1_BWD_ELEMENTWISE_FLOPS_PER_PAIR = 11
+TF32_SPLIT = 3
 FIT_ARGS = ["--targets_dir", "assets/example_scene", "--camera_npz",
             "assets/example_scene/cameras.npz", "--iters", "150", "--use_sh",
             "--num_gaussians", "800"]
@@ -216,6 +243,38 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reports now (call it while kernels run)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def sass_count(lib: Path, kernel: str, opcode: str) -> int:
+    """How many `opcode` instructions the SASS of the function whose name
+    contains `kernel` in library `lib` holds, by cuobjdump (the CUDA
+    toolkit's, or the copy under Triton's package)."""
+    import re
+
+    tools = [Path("/usr/local/cuda/bin/cuobjdump")]
+    try:
+        import triton
+        tools.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t.exists()), None)
+    check(tool is not None, "cuobjdump not found")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if kernel in f.split("\n", 1)[0]]
+    check(len(funcs) == 1, f"{len(funcs)} functions named {kernel} in {lib}")
+    return len(re.findall(rf"\b{opcode}\b", funcs[0]))
 
 
 def scene_arrays(n: int, seed: int):
@@ -460,6 +519,39 @@ def profile_calls(fn, calls: int) -> dict:
             "kernels_per_call": sum(r["calls_per_call"] for r in rows),
             "host_ops_per_call": host_ops / calls,
             "top": rows[:12]}
+
+
+def launched_blocks(fn, kernel: str) -> int:
+    """The thread blocks of each launch of the kernel whose name holds
+    `kernel` that fn() makes: the grid of its kernel events in a
+    torch.profiler trace (CPU and CUDA activities, as profile_calls) of ten
+    calls of fn. Raises unless the trace holds such an event and every one
+    has the same grid."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # Late in a long process the trace can miss the first or last
+            # kernels of a session: wait at both ends, launch ten times.
+            time.sleep(0.2)
+            for _ in range(10):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(0.2)
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    grids = {tuple(e["args"]["grid"]) for e in kernels
+             if kernel in e.get("name", "")}
+    check(len(grids) == 1, f"grids {grids} of {kernel} in a trace of "
+          f"{len(kernels)} kernel events "
+          f"{sorted({e.get('name', '')[:60] for e in kernels})[:4]}")
+    x, y, z = grids.pop()
+    return x * y * z
 
 
 def profile_frames(svc, width: int, height: int, frames: int = 10) -> dict:
@@ -806,18 +898,24 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
               f"values (max abs err {err})")
         k_ms = time_ms(lambda: sorted_bwd.sorted_bwd(*args), reps)
         p_ms = time_ms(lambda: sorted_bwd.sorted_bwd_plain(*args), 5, 1)
+        blocks = launched_blocks(lambda: sorted_bwd.sorted_bwd(*args),
+                                 "sorted_bwd_kernel")
+        slots = int(torch.minimum(cnt, chunks * NBS).sum())
     # The least the card could take: the (slot, pixel) pairs the tiles
     # composited at K4's operations each, against the composited slots,
     # acc, g8, cnt and chunks_done read once and the rows written once.
     n_tiles = cnt.shape[0]
-    slots = int(torch.minimum(cnt, chunks * NBS).sum())
     nbytes = (slots * 64 + 2 * 8 * 4 * n_tiles * TPS + 2 * 4 * n_tiles
               + gdense.numel() * 4)
     ops_ms = 1e3 * SORTED_BWD_FLOPS_PER_EVAL[footprint] * slots * TPS / (
         F32_FLOPS_PER_S)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    check(blocks > n_tiles, f"{name}: K4 launched {blocks} blocks for "
+          f"{n_tiles} tiles")
     case = {"case": name, "footprint": footprint, "pair_k": pair_k,
-            "tiles": n_tiles, "cap": gdense.shape[0] // n_tiles,
+            "tiles": n_tiles, "blocks": blocks,
+            "blocks_per_tile": blocks / n_tiles,     # K4's cluster size
+            "cap": gdense.shape[0] // n_tiles,
             "slots_listed": int(cnt.sum()), "slots_composited": slots,
             "max_abs_err": err, "max_abs_ref": float(scale.max()),
             "ms": k_ms, "plain_ms": p_ms,
@@ -1059,6 +1157,12 @@ def v1_case(name: str, g, view, proj, width: int, height: int, seed: int,
         del ref, ref_b
         k_ms = time_ms(lambda: splat_v1.splat_v1_fwd(*args), reps)
         kb_ms = time_ms(lambda: splat_v1.splat_v1_bwd(*bargs), reps)
+        # The SM clock while K9b runs (launches queued for about 0.3 s).
+        for _ in range(max(1, int(300 / max(kb_ms, 1e-3)))):
+            splat_v1.splat_v1_bwd(*bargs)
+        mhz = sm_clock_mhz()
+        torch.cuda.synchronize()
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
     # The least the card could take: the (gaussian, pixel) pairs that need
     # evaluating -- each mask-active (tile, block) pair's live rows (op >
     # 0) times the tile's pixels inside the frame -- at K9a's (K9b's)
@@ -1083,6 +1187,25 @@ def v1_case(name: str, g, view, proj, width: int, height: int, seed: int,
         bounds[f"{kind}bound_ms"] = max(ops_ms, bytes_ms)
         bounds[f"{kind}bound_by"] = ("operations" if ops_ms >= bytes_ms
                                      else "bytes")
+    # K9b's bound on this card (V1_BWD_PRODUCT_FLOPS_PER_PAIR): the largest
+    # of its terms, the one that decides it named; the 55-flop f32 figure
+    # kept beside it.
+    terms = {
+        "f32 elementwise": 1e3 * V1_BWD_ELEMENTWISE_FLOPS_PER_PAIR
+        * alive_pairs / F32_FLOPS_PER_S,
+        "tf32 products": 1e3 * TF32_SPLIT * V1_BWD_PRODUCT_FLOPS_PER_PAIR
+        * alive_pairs / TF32_FLOPS_PER_S,
+        "sfu exp": 1e3 * alive_pairs / (SFU_EXP_PER_SM_CLOCK * sms
+                                        * mhz * 1e6),
+        "bytes": 1e3 * (in_bytes + 8 * hw_pad * 4 + gdata.numel() * 4)
+        / HBM_BYTES_PER_S}
+    term = max(terms, key=terms.get)
+    bounds.update({
+        "bwd_bound_ms_55flop": bounds["bwd_bound_ms"],
+        "bwd_bound_ms": terms[term],
+        "bwd_bound_by": "bytes" if term == "bytes" else "operations",
+        "bwd_bound_term": term, "bwd_bound_terms_ms": terms,
+        "sm_clock_mhz": mhz, "sms": sms})
     case = {"case": name, "n_pad": gdata.shape[0], "nb": nb, "tp": tp,
             "width": width, "height": height, "tiles": mask.shape[0],
             "blocks": mask.shape[1], "active_pairs": int(active.sum()),
@@ -1293,7 +1416,7 @@ def main() -> int:
         Camera, RenderConfig, make_gaussians, resolve_device, to_device)
     from tpu_gaussians_torch.fit.trainer import load_dataset
     from tpu_gaussians_torch.io.npz import load_gaussians_npz, save_gaussians_npz
-    from tpu_gaussians_torch.kernels import build, sorted_fwd
+    from tpu_gaussians_torch.kernels import build, sorted_bwd, sorted_fwd
     from tpu_gaussians_torch.models.gaussian_model import (
         activate, raw_from_gaussians)
     from tpu_gaussians_torch.ops import sorted as tiled
@@ -1322,6 +1445,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"build {name}: {line.strip()}")
+    # K9b runs its two products on the tensor cores: its SASS holds HMMA.
+    hmma = sass_count(build.library_path("splat_v1_bwd"), "splat_v1_bwd_kernel",
+                      "HMMA")
+    log(f"build splat_v1_bwd: {hmma} HMMA instructions in the kernel's SASS")
+    check(hmma > 0, "splat_v1_bwd's SASS holds no HMMA instruction")
 
     # 3. scene
     n, width, height = 100_000, 960, 540
@@ -1715,7 +1843,9 @@ def main() -> int:
     kernels.append(row("sorted_bwd", "tpu_gaussians/ops/pallas/sorted.py:1013",
                        fit_s["launches"]["sorted_bwd"], bwd_cases,
                        bwd_cases[0], grad_max_err_over_scale=max(
-                           grad_errs.values())))
+                           grad_errs.values()),
+                       blocks={c["case"]: [c["blocks"], c["tiles"]]
+                               for c in bwd_cases}))
     kernels.append(row("splat_v2_fwd", "tpu_gaussians/ops/pallas/splat.py:452",
                        fit_ea["launches"]["splat_v2_fwd"], v2_cases, v2_main,
                        launches_fit_sorted_preview=fit_s["launches"][
@@ -1755,10 +1885,16 @@ def main() -> int:
                "bound_ms": c[f"{kind_}bound_ms"],
                "bound_by": c[f"{kind_}bound_by"],
                "max_abs_err": c[f"{kind_}max_abs_err"]} for c in v1_cases]
+        extra = {}
+        if name == "splat_v1_bwd":
+            extra = {k: v1_cases[0][f"bwd_{k}"] for k in (
+                "bound_term", "bound_terms_ms", "bound_ms_55flop")}
+            extra["hmma_in_sass"] = hmma
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/splat.py:{line}",
                            exact_launches[name], vc, vc[0],
                            launches_per_step=exact_launches[name] // calls,
-                           launches_mixed_route=mixed_launches[name]))
+                           launches_mixed_route=mixed_launches[name],
+                           **extra))
     check([k["name"] for k in kernels] == [
         "sorted_fwd", "splat_sep_fwd", "splat_sep_bwd", "sorted_bwd",
         "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd",

@@ -50,20 +50,17 @@ from tpu_gaussians_torch.ops.dispatch import render
 TILES_X, TILES_Y, CAP = 2, 2, 1024
 
 
-def synthetic_lists(axis, device="cpu", seed=0, cnt=(1024, 1024, 900, 300)):
-    """Per-tile slot lists in the kernel's input layout: splats spread over
-    each tile, 10-40 px wide. Tile 0 is near-opaque and exits early at
-    either threshold, tile 1 translucent (never exits), tile 2 mid-way,
-    tile 3 short; the empty slots past cnt are the dead row."""
+def slot_lists(tiles_x, tiles_y, cnt, axis, op_ranges, cap=CAP, seed=0):
+    """Per-tile slot lists in the kernel's input layout, as numpy: cnt[t]
+    splats spread over tile t, 10-40 px wide, opacities drawn from
+    op_ranges[t]; the empty slots past cnt are the dead row."""
     rng = np.random.default_rng(seed)
-    n_tiles = TILES_X * TILES_Y
-    gd = np.zeros((n_tiles, CAP, 16), np.float32)
+    n_tiles = tiles_x * tiles_y
+    gd = np.zeros((n_tiles, cap, 16), np.float32)
     gd[..., 2] = gd[..., 4] = 1.0                      # dead row: op 0
-    cnt = np.array(cnt, np.int32)
-    op_range = [(0.9, 0.99), (0.01, 0.05), (0.3, 0.8), (0.5, 0.9)]
     for t in range(n_tiles):
         m = cnt[t]
-        x0, y0 = (t % TILES_X) * 128, (t // TILES_X) * 16
+        x0, y0 = (t % tiles_x) * 128, (t // tiles_x) * 16
         sig = rng.uniform(10.0, 40.0, (m, 2)).astype(np.float32)
         rows = gd[t, :m]
         rows[:, 0] = x0 + rng.uniform(-20, 148, m)
@@ -73,12 +70,20 @@ def synthetic_lists(axis, device="cpu", seed=0, cnt=(1024, 1024, 900, 300)):
         if not axis:
             rows[:, 3] = rng.uniform(-0.9, 0.9, m) * np.sqrt(
                 rows[:, 2] * rows[:, 4])
-        rows[:, 5] = rng.uniform(*op_range[t], m)
+        rows[:, 5] = rng.uniform(*op_ranges[t], m)
         rows[:, 6:9] = rng.uniform(0, 1, (m, 3))
         rows[:, 9] = 1.0
         rows[:, 10] = rng.uniform(1.0, 4.0, m)
-    return (torch.from_numpy(gd.reshape(-1, 16)).to(device),
-            torch.from_numpy(cnt).to(device))
+    return gd.reshape(-1, 16), np.array(cnt, np.int32)
+
+
+def synthetic_lists(axis, device="cpu", seed=0, cnt=(1024, 1024, 900, 300)):
+    """slot_lists on the 2x2 tile grid: tile 0 is near-opaque and exits
+    early at either threshold, tile 1 translucent (never exits), tile 2
+    mid-way, tile 3 short."""
+    gd, cnt = slot_lists(TILES_X, TILES_Y, cnt, axis, [
+        (0.9, 0.99), (0.01, 0.05), (0.3, 0.8), (0.5, 0.9)], seed=seed)
+    return (torch.from_numpy(gd).to(device), torch.from_numpy(cnt).to(device))
 
 
 def synthetic_splats(n, height, width, seed=0, y_max=None, sigma_max=8.0):
@@ -552,3 +557,147 @@ def test_accum_render_grads_on_new_routes_match_plain_renderer(
     for a, b in zip(outs["tiled"], outs["torch"]):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=5e-4, atol=1e-5)
+
+
+def v1_edge_inputs(width, height, tp, nb, n_blocks, empty=(), seed=0):
+    """Tile-grid inputs built directly, not through the staging: general
+    conics over the frame (and 10 px past it), a tenth at zero opacity, 8
+    feature columns; a random mask with the blocks in `empty` active in no
+    tile; an N(0,1) cotangent on every row and every padded pixel, so that
+    the kernel and its twin see the same work beyond the frame."""
+    rng = np.random.default_rng(seed)
+    hw_pad = -(-width * height // tp) * tp
+    n_tiles, n = hw_pad // tp, n_blocks * nb
+    sx, sy = rng.uniform(1.0, 8.0, (2, n))
+    gd = np.zeros((n, 16), np.float32)
+    gd[:, 0] = rng.uniform(-10, width + 10, n)
+    gd[:, 1] = rng.uniform(-10, height + 10, n)
+    gd[:, 2], gd[:, 4] = 1.0 / sx ** 2, 1.0 / sy ** 2
+    gd[:, 3] = rng.uniform(-0.9, 0.9, n) * np.sqrt(gd[:, 2] * gd[:, 4])
+    gd[:, 5] = rng.uniform(0.0, 1.0, n) * (rng.uniform(size=n) >= 0.1)
+    gd[:, 6:14] = rng.normal(size=(n, 8))
+    mask = (rng.uniform(size=(n_tiles, n_blocks)) < 0.7).astype(np.uint8)
+    mask[:, list(empty)] = 0
+    g8 = rng.normal(size=(8, hw_pad)).astype(np.float32)
+    return (torch.from_numpy(mask), torch.from_numpy(gd),
+            torch.from_numpy(g8), hw_pad)
+
+
+# K9b's edges: rows that tp does not divide (partial row segments, the last
+# tile partly in the frame), rows whose length is no multiple of 8 (the
+# pixel groups of a segment end part-way), tiles shorter than a row, and
+# blocks that no tile's mask holds (their rows must be zero).
+V1_EDGE_CASES = {
+    "partial_rows": dict(width=200, height=40, tp=2048, nb=128, n_blocks=3),
+    "unaligned_rows": dict(width=100, height=50, tp=384, nb=256, n_blocks=2),
+    "short_tiles": dict(width=333, height=7, tp=128, nb=128, n_blocks=2),
+    "empty_blocks": dict(width=96, height=64, tp=1024, nb=128, n_blocks=5,
+                         empty=(1, 3)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(V1_EDGE_CASES))
+def test_splat_v1_bwd_kernel_edges(cuda, case):
+    kw = dict(V1_EDGE_CASES[case])
+    width, tp, nb = kw["width"], kw["tp"], kw["nb"]
+    mask, gdata, g8, hw_pad = (x if isinstance(x, int) else x.to(cuda)
+                               for x in v1_edge_inputs(**kw, seed=8))
+    args = (mask, gdata, g8, hw_pad, width, nb, tp)
+    out = splat_v1.splat_v1_bwd(*args)
+    again = splat_v1.splat_v1_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)          # deterministic: no atomics
+    ref = splat_v1.v1_bwd_plain(*args)
+    assert_moments_close(out.cpu(), ref.cpu())
+    rows = out.reshape(-1, nb, 16).cpu()
+    assert not rows[:, :, 14:].any()
+    for j in kw.get("empty", ()):
+        assert not rows[j].any()
+    active = [j for j in range(rows.shape[0]) if j not in kw.get("empty", ())]
+    assert rows[active].any()
+
+
+@pytest.mark.cuda
+def test_splat_v1_bwd_rejects_misaligned_g8(cuda):
+    # K9b stages g8 with 16-byte cp.async: a contiguous view 4 bytes into
+    # its storage is refused before the launch, not left to fault.
+    mask, gdata, g8, hw_pad = (x if isinstance(x, int) else x.to(cuda)
+                               for x in v1_edge_inputs(96, 64, 1024, 128, 2))
+    buf = torch.zeros(g8.numel() + 1, device=cuda)
+    shifted = buf[1:].view(g8.shape)
+    shifted.copy_(g8)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        splat_v1.splat_v1_bwd(mask, gdata, shifted, hw_pad, 96, 128, 1024)
+    torch.cuda.synchronize()
+
+
+def launched_blocks(fn, kernel):
+    """Thread blocks of each launch of the kernel whose name holds `kernel`
+    that fn() makes: the grid of its kernel events in a torch.profiler
+    trace of three calls of fn, which must agree."""
+    import json
+    import tempfile
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    grids = {tuple(e["args"]["grid"]) for e in events
+             if e.get("cat") == "kernel" and kernel in e.get("name", "")}
+    assert len(grids) == 1
+    return int(np.prod(grids.pop()))
+
+
+# K4's edges: one tile (one cluster); an odd tile count; tiles with no slot;
+# and chunks_done below ceil(cnt / 512) (rows past the last chunk zero).
+SORTED_EDGE_CASES = {
+    "one_tile": dict(tiles_x=1, tiles_y=1, cnt=(1000,), chunks=None),
+    "odd_tiles": dict(tiles_x=3, tiles_y=1, cnt=(700, 0, 1024), chunks=None),
+    "empty": dict(tiles_x=1, tiles_y=2, cnt=(0, 0), chunks=None),
+    "chunks_cut": dict(tiles_x=2, tiles_y=2, cnt=(1024, 1000, 600, 513),
+                       chunks=(1, 0, 1, 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("footprint", ["axis", "ewa"])
+@pytest.mark.parametrize("case", sorted(SORTED_EDGE_CASES))
+def test_sorted_bwd_kernel_edges(cuda, case, footprint):
+    kw = SORTED_EDGE_CASES[case]
+    axis = footprint == "axis"
+    n_tiles = kw["tiles_x"] * kw["tiles_y"]
+    gdense, cnt = (torch.from_numpy(t).to(cuda) for t in slot_lists(
+        kw["tiles_x"], kw["tiles_y"], kw["cnt"], axis,
+        [(0.01, 0.2), (0.5, 0.95)] * n_tiles, seed=9))
+    acc, chunks = sorted_fwd.sorted_tiles(gdense, cnt, kw["tiles_x"],
+                                          axis=axis, exit_t=1e-6)
+    if kw["chunks"] is not None:
+        chunks = torch.tensor(kw["chunks"], dtype=torch.int32, device=cuda)
+    g8 = torch.randn(acc.shape, generator=torch.Generator().manual_seed(10)
+                     ).to(cuda)
+    args = (gdense, cnt, acc, g8, chunks, kw["tiles_x"], axis)
+    out = sorted_bwd.sorted_bwd(*args)
+    again = sorted_bwd.sorted_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)          # deterministic: no atomics
+    blocks = launched_blocks(lambda: sorted_bwd.sorted_bwd(*args),
+                             "sorted_bwd_kernel")
+    assert blocks > n_tiles                 # a cluster of blocks per tile
+    ref = sorted_bwd.sorted_bwd_plain(*args)
+    assert_sorted_moments_close(out.cpu(), ref.cpu())
+    rows = out.reshape(n_tiles, -1, 16).cpu()
+    for t, (c, k) in enumerate(zip(kw["cnt"], chunks.tolist())):
+        assert not rows[t, min(c, 512 * k):].any()
+        if min(c, 512 * k):
+            assert rows[t, :min(c, 512 * k)].any()

@@ -1,18 +1,19 @@
 """PyTorch + CUDA port of tpu_gaussians for NVIDIA Hopper (H100).
 
 The JAX package `tpu_gaussians` stays the reference; this package keeps its
-layout and names so each module's counterpart is easy to find, and never
-imports it (nor JAX). Ported so far: the depth-sorted render server
-(cli.serve) and renderer (cli.render), down to the per-tile compositing
-kernel `csrc/sorted_fwd.cu`; accumulation training (cli.fit) and the
-accum render mode, down to the separable band kernels
-`csrc/splat_sep_fwd.cu` and `csrc/splat_sep_bwd.cu`.
+layout, names and package-level API so each module's counterpart is easy
+to find, and never imports it (nor JAX). Every path of the JAX package's
+render server (cli.serve), renderer (cli.render) and trainer (cli.fit) is
+ported: both render modes, both footprints, the tile-binned and the exact
+dense accumulation routes, down to a hand-written CUDA kernel for each of
+its Pallas kernels (`csrc/*.cu`). Still to port: `parallel/`, PLY,
+COLMAP, checkpoints and the remaining CLIs (ROADMAP.md).
 
 Layout:
   core/      Gaussians, Camera, RenderConfig, camera math
   io/        npz (reference schema), image loading and PNG output
-  ops/       per-gaussian stage, tile binner, sorted compositing, band
-             accumulation, dispatch
+  ops/       per-gaussian stage, tile binner, sorted compositing, band,
+             tile-grid and tile-binned accumulation, dispatch
   kernels/   nvcc build + ctypes binding, kernel wrappers and plain twins
   csrc/      CUDA C++ kernel sources (sm_90a)
   models/    raw parameters at fixed capacity, activations
@@ -21,4 +22,17 @@ Layout:
   cli/       fit / serve / render entry points
 """
 
+from tpu_gaussians_torch.core.types import Camera, Gaussians, RenderConfig
+from tpu_gaussians_torch.core import camera
+from tpu_gaussians_torch.ops.dispatch import render
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "Camera",
+    "Gaussians",
+    "RenderConfig",
+    "camera",
+    "render",
+    "__version__",
+]

@@ -23,15 +23,29 @@
 // ctg belong to the acc being differentiated. Rows of other slots are zero.
 //
 // Bound: f32 ALU work, 66 operations (60 for the axis footprint) and one exp
-// per (slot, pixel) composited, counted from the pixel loop below, against 64 B read and written per slot and 64 B read per pixel
-// (acc, g8). Design: one block per 16x128 tile, 256 threads that each own the
-// 8 pixels of one column that sorted_fwd.cu gives them, with their g8, ctg, T
-// and P in registers. Slot rows stream through shared memory 64 at a time.
-// Per slot each thread sums its pixels' 14 terms (one column, so the dx
-// moments factor out of the pixel loop), a reduce-scatter over the warp's
-// lanes (16 shuffles) leaves each warp's 16 partial sums in shared memory,
-// and after each 64 slots the 8 warps' partials are added in a fixed order
-// and written as whole rows. No atomics: two launches give the same bits.
+// per (slot, pixel) composited, counted from the pixel loop below, against
+// 64 B read and written per slot and 64 B read per pixel (acc, g8).
+//
+// Design. The walk over a tile's slots is sequential per pixel (T and P carry
+// from slot to slot), but pixels are independent. So each 16x128 tile is
+// split over a thread-block cluster of S = 8 blocks (the portable cluster
+// size) on neighbouring SMs: block r owns tile rows 2r and 2r+1, and each of
+// its 128 threads one column of those two rows (so the dx moments factor out
+// of the pixel loop: Mdx = dx sum g_e, ...), with its pixels' g8, ctg, T and
+// P in registers. The grid has 8 blocks per tile where one block per tile
+// left all but a few SMs idle on small frames, and each slot's critical path
+// is 2 pixels long instead of 8. Slot rows stream through shared memory 64
+// at a time. Per slot, each thread sums its pixels' 14 terms, a
+// reduce-scatter over the warp's lanes (16 shuffles, all indices fixed at
+// compile time so the values stay in registers) leaves each warp's 16
+// partial sums in shared memory, and after each pass of 64 slots the block
+// adds its 4 warps' rows in warp order into a block row per slot. After one
+// cluster barrier, block r adds the 8 blocks' rows of slots 8r ... 8r+7 of
+// the pass, in cluster-rank order, read through distributed shared memory,
+// and writes them as whole rows. The block rows are double-buffered, so one
+// barrier per pass suffices. The division by 1 - a (at least 1e-4) is
+// __fdividef, 2 ulp. No atomics and no global scratch: two launches give the
+// same bits.
 //
 // Inputs: gdense (n_tiles*cap, 16) f32 rows [px, py, conic_a, conic_b,
 // conic_c, op, f(8), 0, 0]; cnt, chunks_done (n_tiles,) int32; acc, g8
@@ -39,7 +53,10 @@
 // out (n_tiles*cap, 16) f32. Build: nvcc -gencode arch=compute_90a,code=sm_90a
 // -O3 -std=c++17 -shared -Xcompiler -fPIC.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -49,37 +66,43 @@ constexpr int TPS = TH * TWC;    // pixels per tile
 constexpr int NBS = 512;         // slots per chunk (the forward's exit step)
 constexpr int GD = 16;           // floats per slot row
 constexpr int FEAT = 8;          // feature rows of acc and g8
-constexpr int THREADS = 256;
+constexpr int S = 8;             // blocks per tile: one cluster
+constexpr int PPT = TH / S;      // pixels (rows of one column) per thread: 2
+constexpr int THREADS = TWC;     // a thread per column
 constexpr int WARPS = THREADS / 32;
-constexpr int PPT = TPS / THREADS;   // pixels per thread (8)
-constexpr int SB = 64;           // slots staged per pass: SB*4 == THREADS float4s
+constexpr int SB = 64;           // slots staged per pass
+constexpr int SR = SB / S;       // slots of a pass each block finishes
 constexpr float ALPHA_CUTOFF = 1e-5f;
 constexpr float A_MAX = 0.9999f;
 
-static_assert(SB * GD / 4 == THREADS, "one float4 of the staged rows per thread");
+static_assert(SR * GD / 4 <= THREADS, "one float4 of finished rows a thread");
+
+// One step of warp_reduce_scatter16: lanes with bit BIT set keep the upper
+// HALF of the values still held and send the lower half to the partner lane,
+// the others the reverse; each adds what it receives.
+template <int HALF, int BIT>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[16], int lane) {
+  const bool up = lane & BIT;
+#pragma unroll
+  for (int k = 0; k < HALF; ++k) {
+    const float lo = v[k], hi = v[k + HALF];
+    v[k] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, BIT);
+  }
+}
 
 // On return lane l holds the sum over the warp's 32 lanes of v[(l >> 1) & 15]
-// (v is clobbered). Each step hands half of the values still held to the
-// partner lane and adds the other half: 8 + 4 + 2 + 1 + 1 shuffles.
+// (v is clobbered): 8 + 4 + 2 + 1 + 1 shuffles.
 __device__ __forceinline__ float warp_reduce_scatter16(float (&v)[16]) {
-  const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int step = 0; step < 4; ++step) {
-    const int half = 8 >> step, bit = 16 >> step;
-    const bool up = lane & bit;
-#pragma unroll
-    for (int k = 0; k < half; ++k) {
-      const float send = up ? v[k] : v[k + half];
-      const float keep = up ? v[k + half] : v[k];
-      v[k] = keep + __shfl_xor_sync(full, send, bit);
-    }
-  }
-  return v[0] + __shfl_xor_sync(full, v[0], 1);
+  reduce_scatter_step<8, 16>(v, lane);
+  reduce_scatter_step<4, 8>(v, lane);
+  reduce_scatter_step<2, 4>(v, lane);
+  reduce_scatter_step<1, 2>(v, lane);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
 }
 
 template <bool AXIS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __cluster_dims__(S, 1, 1) __launch_bounds__(THREADS)
 sorted_bwd_kernel(const float* __restrict__ gdense,
                   const int* __restrict__ cnt,
                   const float* __restrict__ acc,
@@ -88,14 +111,17 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
                   float* __restrict__ out,
                   int tiles_x, int n_tiles, int cap) {
   __shared__ float4 rows[SB * GD / 4];             // 4 KB: staged slot rows
-  __shared__ float4 part4[WARPS * SB * GD / 4];    // 32 KB: warp partial rows
+  __shared__ float4 part4[WARPS * SB * GD / 4];    // 16 KB: warp partial rows
+  __shared__ float4 bpart[2][SB * GD / 4];         // 8 KB: block rows, 2 passes
   float* part = reinterpret_cast<float*>(part4);   // [WARPS][SB][16]
 
-  const int tile = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / S;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int col = threadIdx.x % TWC;
-  const int row0 = threadIdx.x / TWC;        // rows row0, row0+2, ..., +14
+  const int col = threadIdx.x;
+  const int row0 = PPT * rank;               // rows row0, row0 + 1
   const float gx = static_cast<float>((tile % tiles_x) * TWC + col) + 0.5f;
   const int gy0 = (tile / tiles_x) * TH + row0;
 
@@ -105,7 +131,7 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
   float gr[PPT][FEAT], ctg[PPT], T[PPT], P[PPT];
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
-    const size_t p = pix0 + 2 * i * TWC;
+    const size_t p = pix0 + i * TWC;
     ctg[i] = 0.f;
 #pragma unroll
     for (int f = 0; f < FEAT; ++f) {
@@ -122,14 +148,16 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
   float4* dst = reinterpret_cast<float4*>(
       out + static_cast<size_t>(tile) * cap * GD);
 
-  for (int base = 0; base < n_slots; base += SB) {
+  int buf = 0;
+  for (int base = 0; base < n_slots; base += SB, buf ^= 1) {
     const int m = min(SB, n_slots - base);
     // The previous pass's reads of rows and part are over.
     __syncthreads();
-    if (threadIdx.x < m * (GD / 4))
-      rows[threadIdx.x] = src[static_cast<size_t>(base) * (GD / 4) + threadIdx.x];
+    for (int k = threadIdx.x; k < m * (GD / 4); k += THREADS)
+      rows[k] = src[static_cast<size_t>(base) * (GD / 4) + k];
     __syncthreads();
 
+#pragma unroll 2
     for (int s = 0; s < m; ++s) {
       const float4 h0 = rows[s * 4 + 0];    // px, py, a, b
       const float4 h1 = rows[s * 4 + 1];    // c, op, f0, f1
@@ -144,7 +172,7 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
       for (int f = 0; f < FEAT; ++f) gfe[f] = 0.f;
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
-        const float dy = static_cast<float>(gy0 + 2 * i) + 0.5f - h0.y;
+        const float dy = static_cast<float>(gy0 + i) + 0.5f - h0.y;
         float a_raw;
         if (AXIS) {
           a_raw = (h1.y * expf(-0.5f * h1.x * (dy * dy))) * ex;
@@ -159,7 +187,8 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
         for (int f = 0; f < FEAT; ++f) gf += fe[f] * gr[i][f];
         P[i] += w * gf;
         if (a_raw >= ALPHA_CUTOFF && a_raw <= A_MAX) {
-          const float g_e = a_s * (T[i] * gf - (ctg[i] - P[i]) / (1.f - a_s));
+          const float g_e =
+              a_s * (T[i] * gf - __fdividef(ctg[i] - P[i], 1.f - a_s));
           s0 += g_e;
           s1 += g_e * dy;
           s2 += g_e * dy * dy;
@@ -177,22 +206,39 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
     }
     __syncthreads();
 
-    // Row base + r, quarter q: the 8 warps' partials in warp order.
-    const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
-    if (r < m) {
-      float4 sum = part4[r * 4 + q];
+    // The block's row of each slot: its warps' partials in warp order.
+    for (int k = threadIdx.x; k < m * (GD / 4); k += THREADS) {
+      float4 sum = part4[k];
 #pragma unroll
       for (int w = 1; w < WARPS; ++w) {
-        const float4 p = part4[(w * SB + r) * 4 + q];
+        const float4 p = part4[w * SB * (GD / 4) + k];
+        sum.x += p.x; sum.y += p.y; sum.z += p.z; sum.w += p.w;
+      }
+      bpart[buf][k] = sum;
+    }
+    // Every block's rows of this pass are written; the other buffer's reads
+    // (the pass before) are over in every block.
+    cluster.sync();
+
+    // Slots rank*SR ... of the pass: the S blocks' rows in rank order.
+    const int r = rank * SR + (threadIdx.x >> 2), q = threadIdx.x & 3;
+    if (threadIdx.x < SR * (GD / 4) && r < m) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int b = 0; b < S; ++b) {
+        const float4 p = cluster.map_shared_rank(&bpart[buf][0], b)[r * 4 + q];
         sum.x += p.x; sum.y += p.y; sum.z += p.z; sum.w += p.w;
       }
       dst[static_cast<size_t>(base + r) * 4 + q] = sum;
     }
   }
+  // No block leaves while another may still read its shared memory.
+  cluster.sync();
 
   // Slots the forward did not composite: past cnt, or in chunks after the exit.
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k = n_slots * 4 + threadIdx.x; k < cap * 4; k += THREADS)
+  for (int k = n_slots * 4 + rank * THREADS + threadIdx.x; k < cap * 4;
+       k += S * THREADS)
     dst[k] = zero;
 }
 
@@ -204,11 +250,12 @@ extern "C" cudaError_t sorted_bwd_launch(const float* gdense, const int* cnt,
                                          int tiles_x, int n_tiles, int cap,
                                          int axis, cudaStream_t stream) {
   if (n_tiles <= 0) return cudaSuccess;
+  const int blocks = n_tiles * S;   // a cluster of S blocks per tile
   if (axis) {
-    sorted_bwd_kernel<true><<<n_tiles, THREADS, 0, stream>>>(
+    sorted_bwd_kernel<true><<<blocks, THREADS, 0, stream>>>(
         gdense, cnt, acc, g8, chunks_done, out, tiles_x, n_tiles, cap);
   } else {
-    sorted_bwd_kernel<false><<<n_tiles, THREADS, 0, stream>>>(
+    sorted_bwd_kernel<false><<<blocks, THREADS, 0, stream>>>(
         gdense, cnt, acc, g8, chunks_done, out, tiles_x, n_tiles, cap);
   }
   return cudaGetLastError();

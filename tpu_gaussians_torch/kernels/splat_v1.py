@@ -160,7 +160,7 @@ def splat_v1_bwd(mask: torch.Tensor, gdata: torch.Tensor, g8: torch.Tensor,
     CUDA tensors, the plain twin for CPU tensors."""
     _check(mask, gdata, hw_pad, width, nb, tp)
     check_g8(g8, gdata, hw_pad)
-    if not build.on_cuda("splat_v1_bwd", gdata):
+    if not build.on_cuda("splat_v1_bwd", gdata, g8):   # g8 by 16 B cp.async
         return v1_bwd_plain(mask, gdata, g8, hw_pad, width, nb, tp)
     out = torch.empty_like(gdata)
     build.launch("splat_v1_bwd", (mask, gdata, g8, out), mask.shape[0],
