@@ -11,8 +11,8 @@ Phases, each of which fails the run by raising:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc for every kernel source, all started together; nvcc's
               seconds and ptxas' register and shared-memory lines; the count
-              of HMMA (tensor-core) instructions in K9b's SASS (cuobjdump),
-              which must not be 0
+              of HMMA (tensor-core) instructions in K9a's and K9b's SASS
+              (cuobjdump), neither of which may be 0
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -98,14 +98,16 @@ Phases, each of which fails the run by raising:
               train steps timed and 1 profiled, K9a (splat_v1_fwd) and K9b
               (splat_v1_bwd) launched exactly 4 times per step each and no
               other kernel
- 18. K9       K9a, then K9b on a seeded cotangent, against their twins on
-              view 0 at 1M (one twin call each; K5 and K6 timed on the same
-              view, the route the threshold does not take) and at 8,192 EWA
-              gaussians on 512x512, where K9a's sums are also held against
-              K5's and splat_accumulate's gradients through K9a/K9b against
-              those through K5/K6; K9b's bound on this card (its products on
-              the tensor cores, the SM clock read while it runs) beside the
-              55-flop f32 one
+ 18. K9       K9a (twice, bit-identical), then K9b on a seeded cotangent,
+              against their twins on view 0 at 1M (one twin call each; K5
+              and K6 timed on the same view, the route the threshold does
+              not take) and at 8,192 EWA gaussians on 512x512, where K9a's
+              sums are also held against K5's and splat_accumulate's
+              gradients through K9a/K9b against those through K5/K6; K9a's
+              and K9b's bounds on this card (their products on the tensor
+              cores, the SM clock read while each runs: the largest of the
+              elementwise f32, TF32 product, SFU exp and byte terms, the
+              deciding one named) beside the 26- and 55-flop f32 ones
  19. scale ewa mixed  500,000 EWA gaussians, the same views and config:
               between JAX's two v2 sizes, so the forward takes K5 and the
               backward K9b on a restaging of the saved columns; 1 train
@@ -120,16 +122,17 @@ K8b and K9b to rtol 2e-4 and atol 2e-5 times the largest magnitude of their
 output column (at least 1; their moments are sums of signed terms that
 cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest magnitude of its
 output column (the JAX suite's tolerance for the sorted backward: ctg - P_i
-cancels and is divided by 1 - a); K2, K4, K6, K7b, K8b and K9b are
-bit-identical across two launches. K9a against K5 and binned against dense
-renders: rtol 1e-4 / atol 1e-5; gradients through K9 against K5/K6, and
-the mixed route's against the tile grid's: rtol 2e-3 and atol 2e-4 times
-the largest magnitude. Kernel times are CUDA-event medians of 20 after
-warm-up (twins: of 5; at 1M, kernels of 5 and twins of 1). The launch
-counters are set to 0 just before each main path (phases 4-5 for serving,
-the cli.fit.main calls of phases 7, 9, 13, 14 and 15 and the train steps
-of phases 17 and 19 for training) and read just after: every kernel of
-the path must have launched there. It exits non-zero, printing no result,
+cancels and is divided by 1 - a); K2, K4, K6, K7b, K8b, K9a and K9b are
+bit-identical across two launches (K9a and K9b run their products on the
+tensor cores, in TF32 split three ways, and sum in a fixed order). K9a
+against K5 and binned against dense renders: rtol 1e-4 / atol 1e-5;
+gradients through K9 against K5/K6, and the mixed route's against the tile
+grid's: rtol 2e-3 and atol 2e-4 times the largest magnitude. Kernel times
+are CUDA-event medians of 20 after warm-up (twins: of 5; at 1M, kernels of
+5 and twins of 1). The launch counters are set to 0 just before each main
+path (phases 4-5 for serving, the cli.fit.main calls of phases 7, 9, 13, 14
+and 15 and the train steps of phases 17 and 19 for training) and read just
+after: every kernel of the path must have launched there. It exits non-zero, printing no result,
 without a CUDA device or outside a checkout.
 """
 
@@ -218,6 +221,14 @@ V1_BWD_FLOPS_PER_PAIR = 55
 # comparable.
 V1_BWD_PRODUCT_FLOPS_PER_PAIR = 32
 V1_BWD_ELEMENTWISE_FLOPS_PER_PAIR = 11
+# K9a's on the same terms (csrc/splat_v1_fwd.cu runs its 8-wide product on
+# the tensor cores): the product's 16 flops per pair, and the elementwise
+# work the function needs per pair with the row terms (dy, b dy, c dy^2)
+# paid once per row and op folded into the feature rows: dx (1) and e =
+# fma(dx, fma(a, dx, b dy), c dy^2) (4). The 26-flop f32 bound above is
+# printed beside it (bound_ms_26flop).
+V1_FWD_PRODUCT_FLOPS_PER_PAIR = 16
+V1_FWD_ELEMENTWISE_FLOPS_PER_PAIR = 5
 TF32_SPLIT = 3
 FIT_ARGS = ["--targets_dir", "assets/example_scene", "--camera_npz",
             "assets/example_scene/cameras.npz", "--iters", "150", "--use_sh",
@@ -254,27 +265,34 @@ def sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def sass_count(lib: Path, kernel: str, opcode: str) -> int:
-    """How many `opcode` instructions the SASS of the function whose name
-    contains `kernel` in library `lib` holds, by cuobjdump (the CUDA
-    toolkit's, or the copy under Triton's package)."""
-    import re
+def tensor_core_bound(pairs: int, elementwise: int, product: int,
+                      nbytes: int, sms: int, mhz: float):
+    """(bound ms, deciding term, every term's ms) of a kernel that runs its
+    per-pair product on the tensor cores: the largest of `elementwise` f32
+    flops per pair at the f32 rate, `product` flops per pair times the
+    TF32 split at the TF32 rate, one exp per pair on the SFU (16 per SM and
+    clock at the SM clock `mhz`), and `nbytes` at the memory rate."""
+    terms = {
+        "f32 elementwise": 1e3 * elementwise * pairs / F32_FLOPS_PER_S,
+        "tf32 products": 1e3 * TF32_SPLIT * product * pairs
+        / TF32_FLOPS_PER_S,
+        "sfu exp": 1e3 * pairs / (SFU_EXP_PER_SM_CLOCK * sms * mhz * 1e6),
+        "bytes": 1e3 * nbytes / HBM_BYTES_PER_S}
+    term = max(terms, key=terms.get)
+    return terms[term], term, terms
 
-    tools = [Path("/usr/local/cuda/bin/cuobjdump")]
-    try:
-        import triton
-        tools.append(Path(triton.__file__).parent / "backends" / "nvidia"
-                     / "bin" / "cuobjdump")
-    except ImportError:
-        pass
-    tool = next((t for t in tools if t.exists()), None)
-    check(tool is not None, "cuobjdump not found")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    funcs = [f for f in sass.split("Function : ")[1:]
-             if kernel in f.split("\n", 1)[0]]
-    check(len(funcs) == 1, f"{len(funcs)} functions named {kernel} in {lib}")
-    return len(re.findall(rf"\b{opcode}\b", funcs[0]))
+
+def v1_live_pairs(mask, gdata, nb: int, tp: int, hw: int) -> int:
+    """The (gaussian, pixel) pairs K9's function needs: each mask-active
+    (tile, block) pair's live rows (op > 0) times the tile's pixels inside
+    the frame."""
+    import torch
+
+    live = (gdata[:, 5] > 0).to(torch.int64).reshape(-1, nb).sum(dim=1)
+    tile_px = torch.clamp(hw - tp * torch.arange(
+        mask.shape[0], device=mask.device), 0, tp)
+    return int(((mask.to(torch.int64) * live[None, :]).sum(dim=1)
+                * tile_px).sum())
 
 
 def scene_arrays(n: int, seed: int):
@@ -1131,6 +1149,7 @@ def v1_case(name: str, g, view, proj, width: int, height: int, seed: int,
         mask, gdata, nb, tp, hw_pad = splat._v1_prep(s, height, width)
         args = (mask, gdata, hw_pad, width, nb, tp)
         acc = splat_v1.splat_v1_fwd(*args)
+        acc_again = splat_v1.splat_v1_fwd(*args)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         g8 = torch.zeros((8, hw_pad), device="cuda")
         g8[:5, :hw] = torch.randn((5, hw), generator=gen, device="cuda")
@@ -1140,7 +1159,10 @@ def v1_case(name: str, g, view, proj, width: int, height: int, seed: int,
         torch.cuda.synchronize()
         check(bool(torch.isfinite(acc).all()), f"{name}: non-finite K9a sums")
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite K9b rows")
+        check(bool(torch.equal(acc, acc_again)),
+              f"{name}: K9a not deterministic")
         check(bool(torch.equal(out, again)), f"{name}: K9b not deterministic")
+        del acc_again
         # the twins without warm-up (at 1M a call takes seconds)
         ref, p_ms = timed(lambda: splat_v1.v1_fwd_plain(*args), plain_reps)
         err = float((acc - ref).abs().max())
@@ -1157,11 +1179,15 @@ def v1_case(name: str, g, view, proj, width: int, height: int, seed: int,
         del ref, ref_b
         k_ms = time_ms(lambda: splat_v1.splat_v1_fwd(*args), reps)
         kb_ms = time_ms(lambda: splat_v1.splat_v1_bwd(*bargs), reps)
-        # The SM clock while K9b runs (launches queued for about 0.3 s).
-        for _ in range(max(1, int(300 / max(kb_ms, 1e-3)))):
-            splat_v1.splat_v1_bwd(*bargs)
-        mhz = sm_clock_mhz()
-        torch.cuda.synchronize()
+        # The SM clock while each kernel runs (launches queued for about
+        # 0.3 s).
+        mhz = {}
+        for kind, fn, a, ms in (("fwd", splat_v1.splat_v1_fwd, args, k_ms),
+                                ("bwd", splat_v1.splat_v1_bwd, bargs, kb_ms)):
+            for _ in range(max(1, int(300 / max(ms, 1e-3)))):
+                fn(*a)
+            mhz[kind] = sm_clock_mhz()
+            torch.cuda.synchronize()
         sms = torch.cuda.get_device_properties(0).multi_processor_count
     # The least the card could take: the (gaussian, pixel) pairs that need
     # evaluating -- each mask-active (tile, block) pair's live rows (op >
@@ -1170,42 +1196,32 @@ def v1_case(name: str, g, view, proj, width: int, height: int, seed: int,
     # (8, hw_pad) sums written once (K9b: g8 read once and the (n_pad, 16)
     # rows written once). pairs_evaluated is what the kernels run: every
     # row of each active block on every pixel of the tile.
-    live = (gdata[:, 5] > 0).to(torch.int64).reshape(-1, nb).sum(dim=1)
-    tile_px = torch.clamp(hw - tp * torch.arange(
-        mask.shape[0], device=mask.device), 0, tp)
     active = mask.to(torch.int64)
-    alive_pairs = int(((active * live[None, :]).sum(dim=1) * tile_px).sum())
+    alive_pairs = v1_live_pairs(mask, gdata, nb, tp, hw)
     pairs = int(active.sum()) * nb * tp
     in_bytes = gdata.numel() * 4 + mask.numel()
-    bounds = {}
-    for kind, flops, nbytes in (
-            ("", V1_FWD_FLOPS_PER_PAIR, in_bytes + 8 * hw_pad * 4),
-            ("bwd_", V1_BWD_FLOPS_PER_PAIR,
+    bounds = {"sms": sms}
+    # Each kernel's bound on this card, its products on the tensor cores:
+    # the largest of its terms, the one that decides it named; the 26-
+    # (55-) flop f32 figure, which prices the products at the CUDA-core
+    # rate, kept beside it. The SM clock is the one read while it ran.
+    for kind, flops, elementwise, product, nbytes in (
+            ("", V1_FWD_FLOPS_PER_PAIR, V1_FWD_ELEMENTWISE_FLOPS_PER_PAIR,
+             V1_FWD_PRODUCT_FLOPS_PER_PAIR, in_bytes + 8 * hw_pad * 4),
+            ("bwd_", V1_BWD_FLOPS_PER_PAIR, V1_BWD_ELEMENTWISE_FLOPS_PER_PAIR,
+             V1_BWD_PRODUCT_FLOPS_PER_PAIR,
              in_bytes + 8 * hw_pad * 4 + gdata.numel() * 4)):
-        ops_ms = 1e3 * flops * alive_pairs / F32_FLOPS_PER_S
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        bounds[f"{kind}bound_ms"] = max(ops_ms, bytes_ms)
-        bounds[f"{kind}bound_by"] = ("operations" if ops_ms >= bytes_ms
-                                     else "bytes")
-    # K9b's bound on this card (V1_BWD_PRODUCT_FLOPS_PER_PAIR): the largest
-    # of its terms, the one that decides it named; the 55-flop f32 figure
-    # kept beside it.
-    terms = {
-        "f32 elementwise": 1e3 * V1_BWD_ELEMENTWISE_FLOPS_PER_PAIR
-        * alive_pairs / F32_FLOPS_PER_S,
-        "tf32 products": 1e3 * TF32_SPLIT * V1_BWD_PRODUCT_FLOPS_PER_PAIR
-        * alive_pairs / TF32_FLOPS_PER_S,
-        "sfu exp": 1e3 * alive_pairs / (SFU_EXP_PER_SM_CLOCK * sms
-                                        * mhz * 1e6),
-        "bytes": 1e3 * (in_bytes + 8 * hw_pad * 4 + gdata.numel() * 4)
-        / HBM_BYTES_PER_S}
-    term = max(terms, key=terms.get)
-    bounds.update({
-        "bwd_bound_ms_55flop": bounds["bwd_bound_ms"],
-        "bwd_bound_ms": terms[term],
-        "bwd_bound_by": "bytes" if term == "bytes" else "operations",
-        "bwd_bound_term": term, "bwd_bound_terms_ms": terms,
-        "sm_clock_mhz": mhz, "sms": sms})
+        clock = mhz["bwd" if kind else "fwd"]
+        ms, term, terms = tensor_core_bound(alive_pairs, elementwise, product,
+                                            nbytes, sms, clock)
+        bounds.update({
+            f"{kind}bound_ms_{flops}flop": max(
+                1e3 * flops * alive_pairs / F32_FLOPS_PER_S,
+                1e3 * nbytes / HBM_BYTES_PER_S),
+            f"{kind}bound_ms": ms,
+            f"{kind}bound_by": "bytes" if term == "bytes" else "operations",
+            f"{kind}bound_term": term, f"{kind}bound_terms_ms": terms,
+            f"{kind}sm_clock_mhz": clock})
     case = {"case": name, "n_pad": gdata.shape[0], "nb": nb, "tp": tp,
             "width": width, "height": height, "tiles": mask.shape[0],
             "blocks": mask.shape[1], "active_pairs": int(active.sum()),
@@ -1445,11 +1461,15 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"build {name}: {line.strip()}")
-    # K9b runs its two products on the tensor cores: its SASS holds HMMA.
-    hmma = sass_count(build.library_path("splat_v1_bwd"), "splat_v1_bwd_kernel",
-                      "HMMA")
-    log(f"build splat_v1_bwd: {hmma} HMMA instructions in the kernel's SASS")
-    check(hmma > 0, "splat_v1_bwd's SASS holds no HMMA instruction")
+    # K9a and K9b run their products on the tensor cores: their SASS holds
+    # HMMA.
+    hmma = {}
+    for name in ("splat_v1_fwd", "splat_v1_bwd"):
+        hmma[name] = build.sass_count(build.library_path(name),
+                                      f"{name}_kernel", "HMMA")
+        log(f"build {name}: {hmma[name]} HMMA instructions in the kernel's "
+            f"SASS")
+        check(hmma[name] > 0, f"{name}'s SASS holds no HMMA instruction")
 
     # 3. scene
     n, width, height = 100_000, 960, 540
@@ -1885,11 +1905,11 @@ def main() -> int:
                "bound_ms": c[f"{kind_}bound_ms"],
                "bound_by": c[f"{kind_}bound_by"],
                "max_abs_err": c[f"{kind_}max_abs_err"]} for c in v1_cases]
-        extra = {}
-        if name == "splat_v1_bwd":
-            extra = {k: v1_cases[0][f"bwd_{k}"] for k in (
-                "bound_term", "bound_terms_ms", "bound_ms_55flop")}
-            extra["hmma_in_sass"] = hmma
+        extra = {k: v1_cases[0][f"{kind_}{k}"] for k in (
+            "bound_term", "bound_terms_ms",
+            "bound_ms_26flop" if name == "splat_v1_fwd" else
+            "bound_ms_55flop")}
+        extra["hmma_in_sass"] = hmma[name]
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/splat.py:{line}",
                            exact_launches[name], vc, vc[0],
                            launches_per_step=exact_launches[name] // calls,

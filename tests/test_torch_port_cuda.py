@@ -30,8 +30,9 @@ Tolerances:
 - EWA accumulation render gradients (K5/K6, K8a/K8b) against the plain
   renderer: rtol 5e-4 / atol 1e-5, as the axis footprint's.
 - binned_sep_fwd (K7a) and splat_v1_fwd (K9a): rtol 1e-5 / atol 1e-5, as
-  K8a and K5; binned_sep_bwd (K7b) and splat_v1_bwd (K9b): as K2, and
-  bit-identical across two launches; the axis binned render (K7a/K7b) and
+  K8a and K5 (K9a's product on the tensor cores, TF32 split three ways),
+  K9a bit-identical across two launches; binned_sep_bwd (K7b) and
+  splat_v1_bwd (K9b): as K2, and bit-identical across two launches; the axis binned render (K7a/K7b) and
   the EWA render on the tile grid (K9a/K9b) and their gradients against
   the plain renderer: rtol 5e-4 / atol 1e-5, as the other accum renders."""
 
@@ -616,6 +617,42 @@ def test_splat_v1_bwd_kernel_edges(cuda, case):
         assert not rows[j].any()
     active = [j for j in range(rows.shape[0]) if j not in kw.get("empty", ())]
     assert rows[active].any()
+
+
+# K9a's: V1_EDGE_CASES, and a width that is no multiple of 16 at the
+# largest tile (warps whose 128 pixels straddle frame rows; a 16-pixel mma
+# tile split between two rows).
+V1_FWD_EDGE_CASES = {
+    **V1_EDGE_CASES,
+    "width_250": dict(width=250, height=20, tp=2048, nb=256, n_blocks=3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(V1_FWD_EDGE_CASES))
+def test_splat_v1_fwd_kernel_edges(cuda, case):
+    """K9a against its twin, bit-identical across two launches, exact zeros
+    on a tile whose mask row is empty, and tensor-core instructions in its
+    SASS."""
+    kw = dict(V1_FWD_EDGE_CASES[case])
+    width, tp, nb = kw["width"], kw["tp"], kw["nb"]
+    mask, gdata, _, hw_pad = v1_edge_inputs(**kw, seed=9)
+    empty_tile = mask.shape[0] // 2
+    mask[empty_tile] = 0
+    mask, gdata = mask.to(cuda), gdata.to(cuda)
+    args = (mask, gdata, hw_pad, width, nb, tp)
+    acc = splat_v1.splat_v1_fwd(*args)
+    again = splat_v1.splat_v1_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, again)          # deterministic: no atomics
+    ref = splat_v1.v1_fwd_plain(*args)
+    np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for i in range(mask.shape[0]):
+        if not mask[i].any():
+            assert not acc[:, i * tp:(i + 1) * tp].any()
+    assert build.sass_count(build.library_path("splat_v1_fwd"),
+                            "splat_v1_fwd_kernel", "HMMA") > 0
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ import torch
 
 from tpu_gaussians.ops.pallas import splat as JS
 from tpu_gaussians_torch.kernels import splat_v1
+from tpu_gaussians_torch.kernels.splat_v2 import EXP_FLOOR
 from tpu_gaussians_torch.ops import splat as TS
 
 from .test_torch_port_cuda import assert_moments_close, synthetic_splats
@@ -178,3 +179,83 @@ def test_splat_accumulate_v1_values_and_grads_match_jax(
         np.testing.assert_allclose(getattr(s, k).grad.numpy(), np.asarray(jg),
                                    rtol=5e-4, atol=1e-6,
                                    err_msg=f"grad of {k}")
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x with its 13 low mantissa bits cleared: the TF32 part of an f32
+    value, as K9a forms it and as the tensor core reads an f32 register."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def k9a_emulated(mask, gdata, hw_pad, width, nb, tp):
+    """K9a's arithmetic (csrc/splat_v1_fwd.cu) in torch: log2(e) folded
+    into the conic and w = 2^e; op folded into the feature rows; the
+    product of w and the feature rows from three TF32 products, big.big' +
+    big.small' + small.big' with x = big + small (big = tf32(x), small read
+    to TF32), each exact (f64) and summed over a 128-row chunk, rounded to
+    f32 once per chunk; the chunk partials added into an f32 total per
+    pixel in chunk order."""
+    log2e = 1.4426950408889634
+    out = torch.zeros((8, hw_pad), dtype=torch.float32)
+    for i in range(mask.shape[0]):
+        idx = i * tp + torch.arange(tp)
+        gx = (idx % width).float()[None, :] + 0.5
+        gy = (idx // width).float()[None, :] + 0.5
+        for j in torch.nonzero(mask[i]).flatten().tolist():
+            for c in range(j * nb, (j + 1) * nb, 128):
+                g = gdata[c:c + 128]
+                ah = (-0.5 * log2e) * g[:, 2:3]
+                bh = -log2e * g[:, 3:4]
+                ch = (-0.5 * log2e) * g[:, 4:5]
+                dx = gx - g[:, 0:1]
+                dy = gy - g[:, 1:2]
+                e = dx * (ah * dx + bh * dy) + (ch * dy) * dy
+                w = torch.exp2(torch.clamp(e, min=EXP_FLOOR * log2e))
+                featop = g[:, 6:14] * g[:, 5:6]
+                wb, fb = tf32(w), tf32(featop)
+                ws, fs = tf32(w - wb), tf32(featop - fb)
+                part = (fb.double().T @ wb.double() + fs.double().T
+                        @ wb.double() + fb.double().T @ ws.double())
+                out[:, i * tp:(i + 1) * tp] += part.float()
+    return out
+
+
+def heavy_inputs(n=2048, height=32, width=64, seed=11):
+    """One 2048-pixel tile under 2048 wide gaussians (sigmas 20-40 pixels),
+    every block active: each pixel sums every gaussian, and the sums of the
+    feature row of ones reach the 1M-gaussian scene's (about 900)."""
+    rng = np.random.default_rng(seed)
+    sx, sy = rng.uniform(20.0, 40.0, (2, n))
+    gd = np.zeros((n, 16), np.float32)
+    gd[:, 0] = rng.uniform(0, width, n)
+    gd[:, 1] = rng.uniform(0, height, n)
+    gd[:, 2], gd[:, 4] = 1.0 / sx ** 2, 1.0 / sy ** 2
+    gd[:, 3] = rng.uniform(-0.9, 0.9, n) * np.sqrt(gd[:, 2] * gd[:, 4])
+    gd[:, 5] = rng.uniform(0.45, 0.7, n)
+    gd[:, 6:9] = rng.uniform(0, 1, (n, 3))
+    gd[:, 9] = 1.0
+    gd[:, 10] = rng.uniform(2.0, 4.0, n)
+    nb, tp = 512, 2048
+    mask = torch.ones((1, n // nb), dtype=torch.uint8)
+    return mask, torch.from_numpy(gd), nb, tp, tp
+
+
+@pytest.mark.parametrize("case", [*(f"{n}_{h}x{w}" for n, h, w in V1_CASES),
+                                  "heavy_2048_32x64"])
+def test_k9a_tf32_split_arithmetic_matches_twin(case):
+    """K9a's arithmetic, emulated without a card (the three-way TF32 split
+    with op folded into the feature rows, 2^e, chunk partials), against the
+    twin at chip_smoke's K9a tolerance, rtol 1e-5 / atol 1e-5: on the parity
+    inputs, and on sums of the 1M scene's magnitude."""
+    if case.startswith("heavy"):
+        mask, gdata, nb, tp, hw_pad = heavy_inputs()
+        width = 64
+    else:
+        n, height, width = map(int, case.replace("x", "_").split("_"))
+        _, (mask, gdata, nb, tp, hw_pad) = staged(n, height, width)
+    got = k9a_emulated(mask, gdata, hw_pad, width, nb, tp)
+    ref = splat_v1.v1_fwd_plain(mask, gdata, hw_pad, width, nb, tp)
+    if case.startswith("heavy"):
+        assert 800 < float(ref[3].max()) < 1000
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)

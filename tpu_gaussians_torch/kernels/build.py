@@ -11,7 +11,8 @@ by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once. `build_all` starts one nvcc per source, all
 together. Nothing is built or loaded when this module is imported.
 `launch` calls a library's launcher on the current CUDA stream; every
-kernel wrapper launches through it.
+kernel wrapper launches through it. `sass_count` counts an opcode in a
+built kernel's SASS (cuobjdump), which shows what the compiler made of it.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -120,3 +122,27 @@ def launch(name: str, tensors: Sequence[torch.Tensor], *scalars) -> None:
                  ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"{name}_launch failed with CUDA error {err}")
+
+
+def sass_count(lib: Path, kernel: str, opcode: str) -> int:
+    """How many `opcode` instructions the SASS of the function whose name
+    contains `kernel` in library `lib` holds, by cuobjdump (the CUDA
+    toolkit's, or the copy under Triton's package). Raises if neither is
+    found or `lib` holds no single such function."""
+    tools = [Path("/usr/local/cuda/bin/cuobjdump")]
+    try:
+        import triton
+        tools.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t.exists()), None)
+    if tool is None:
+        raise RuntimeError("cuobjdump not found")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if kernel in f.split("\n", 1)[0]]
+    if len(funcs) != 1:
+        raise RuntimeError(f"{len(funcs)} functions named {kernel} in {lib}")
+    return len(re.findall(rf"\b{opcode}\b", funcs[0]))
