@@ -11,8 +11,8 @@ Phases, each of which fails the run by raising:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc for every kernel source, all started together; nvcc's
               seconds and ptxas' register and shared-memory lines; the count
-              of HMMA (tensor-core) instructions in K9a's and K9b's SASS
-              (cuobjdump), neither of which may be 0
+              of HMMA (tensor-core) instructions in K1's, K9a's and K9b's
+              SASS (cuobjdump), none of which may be 0
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -37,12 +37,18 @@ Phases, each of which fails the run by raising:
               K1 launched exactly 901 times (6 per step and the preview),
               K2 900 and no other kernel;
               then a torch.profiler breakdown of train steps, and the band
-              kernels K1 (splat_sep_fwd) and K2 (splat_sep_bwd) against
-              their twins on the fitted model's staged inputs
+              kernels K1 (splat_sep_fwd, twice, bit-identical) and K2
+              (splat_sep_bwd) against their twins on the fitted model's
+              staged inputs; K1's bound on this card (its product on the
+              tensor cores, the SM clock read while it runs: the largest of
+              the TF32 product, f32 operand, SFU exp and byte terms, the
+              deciding one named) beside the 10-flop f32 one, and K1's
+              product alone through one cuBLAS f32 torch.bmm on factors
+              formed beforehand (a yardstick the port never calls)
   8. scale    100,000 alive gaussians (the scene generator of phase 3), 4
               orbit views at 512x512 (R = 32, 16 bands), random targets from
               --seed: 10 train steps timed with CUDA events, a profile, and
-              K1/K2 against their twins on those staged inputs
+              K1/K2 against their twins on those staged inputs, as in 7
   9. fit sorted  cli.fit.main with the same recipe plus --max_gaussians
               4096 --footprint ewa (render_mode auto -> sorted): the checks
               of phase 7, the pair-budget line printed, K3 (sorted_fwd) and
@@ -122,9 +128,9 @@ K8b and K9b to rtol 2e-4 and atol 2e-5 times the largest magnitude of their
 output column (at least 1; their moments are sums of signed terms that
 cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest magnitude of its
 output column (the JAX suite's tolerance for the sorted backward: ctg - P_i
-cancels and is divided by 1 - a); K2, K4, K6, K7b, K8b, K9a and K9b are
-bit-identical across two launches (K9a and K9b run their products on the
-tensor cores, in TF32 split three ways, and sum in a fixed order). K9a
+cancels and is divided by 1 - a); K1, K2, K4, K6, K7b, K8b, K9a and K9b
+are bit-identical across two launches (K1, K9a and K9b run their products
+on the tensor cores, in TF32 split three ways, and sum in a fixed order). K9a
 against K5 and binned against dense renders: rtol 1e-4 / atol 1e-5;
 gradients through K9 against K5/K6, and the mixed route's against the tile
 grid's: rtol 2e-3 and atol 2e-4 times the largest magnitude. Kernel times
@@ -266,17 +272,18 @@ def sm_clock_mhz() -> float:
 
 
 def tensor_core_bound(pairs: int, elementwise: int, product: int,
-                      nbytes: int, sms: int, mhz: float):
+                      nbytes: int, sms: int, mhz: float, exps: int = 1):
     """(bound ms, deciding term, every term's ms) of a kernel that runs its
     per-pair product on the tensor cores: the largest of `elementwise` f32
     flops per pair at the f32 rate, `product` flops per pair times the
-    TF32 split at the TF32 rate, one exp per pair on the SFU (16 per SM and
-    clock at the SM clock `mhz`), and `nbytes` at the memory rate."""
+    TF32 split at the TF32 rate, `exps` exps per pair on the SFU (16 per SM
+    and clock at the SM clock `mhz`), and `nbytes` at the memory rate."""
     terms = {
         "f32 elementwise": 1e3 * elementwise * pairs / F32_FLOPS_PER_S,
         "tf32 products": 1e3 * TF32_SPLIT * product * pairs
         / TF32_FLOPS_PER_S,
-        "sfu exp": 1e3 * pairs / (SFU_EXP_PER_SM_CLOCK * sms * mhz * 1e6),
+        "sfu exp": 1e3 * exps * pairs / (SFU_EXP_PER_SM_CLOCK * sms * mhz
+                                         * 1e6),
         "bytes": 1e3 * nbytes / HBM_BYTES_PER_S}
     term = max(terms, key=terms.get)
     return terms[term], term, terms
@@ -680,9 +687,79 @@ def staged_sep(g, view, proj, width: int, height: int):
     return lo, cnt, gdata, rows, wp, nb
 
 
+def sep_library_product(lo, cnt, gdata, rows: int, wp: int, nb: int,
+                        acc, reps: int):
+    """K1's product alone through one cuBLAS call: the factors G (n_bands,
+    5R, K) and Ex (n_bands, K, Wp) formed beforehand by the twin's own
+    arithmetic, zero-padded to the longest range K, then one torch.bmm in
+    f32 (TF32 off). A yardstick of the product's time, not of the
+    function's (the factors' exps are outside it); the port never calls
+    it. -> (median ms, largest difference from K1's sums)."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import splat_sep as K
+
+    ranges = K._ranges(lo, cnt, nb)
+    k_max = max([e - s for _, s, e in ranges], default=nb)
+    n_bands = lo.shape[0]
+    g_all = torch.zeros((n_bands, K.FEAT * rows, k_max), device="cuda")
+    ex_all = torch.zeros((n_bands, k_max, wp), device="cuda")
+    for i, s0, e0 in ranges:
+        _, ex, _, _, _, g_mat = K._band_factors(gdata[s0:e0], i, rows, wp)
+        g_all[i, :, :e0 - s0] = g_mat.reshape(K.FEAT * rows, -1)
+        ex_all[i, :e0 - s0] = ex.T
+        del ex, g_mat
+    ms = time_ms(lambda: torch.bmm(g_all, ex_all), reps)
+    prod = torch.bmm(g_all, ex_all).reshape(acc.shape)
+    err = float((prod - acc).abs().max())
+    del g_all, ex_all, prod
+    return ms, err
+
+
+def sep_fwd_bound(lo, cnt, gdata, rows: int, wp: int, nb: int, sms: int,
+                  mhz: float) -> dict:
+    """K1's bound on this card for the (gaussian, band) pairs this run's
+    block ranges evaluate, for a kernel that runs its product on the tensor
+    cores (csrc/splat_sep_fwd.cu does, as the TPU did on its matrix unit):
+    the largest of tensor_core_bound's terms at the SM clock `mhz`. Per
+    pair, the product is SEP_FWD_FLOPS_PER_PIXEL per band pixel (priced x3,
+    the TF32 split); G = featsop x Ey takes 5R multiplies at the f32 rate;
+    one exp per row and per column; against gdata and lo/cnt read once and
+    the planes written once. The operands' splits and the slice partials
+    are K1's design, not its function, and stay out of the bound: the
+    partials' bytes and their time at the memory rate are reported beside
+    it. The 10-flop f32 figure beside it too; K1's slices."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import splat_sep as K
+
+    n_bands, n_pad = lo.shape[0], gdata.shape[0]
+    pairs = int(cnt.to(torch.int64).sum()) * nb
+    length, slices = K.fwd_slices(n_bands, rows, wp, n_pad)
+    spans = (torch.clamp((lo + cnt).to(torch.int64) * nb, max=n_pad)
+             - lo.to(torch.int64) * nb)
+    live = int(torch.clamp((spans + length - 1) // length, min=1).sum())
+    plane_bytes = K.FEAT * rows * wp * 4
+    partial_bytes = 2 * live * plane_bytes if slices > 1 else 0
+    nbytes = gdata.numel() * 4 + 2 * n_bands * 4 + n_bands * plane_bytes
+    product = SEP_FWD_FLOPS_PER_PIXEL * rows * wp
+    ms, term, terms = tensor_core_bound(pairs, K.FEAT * rows, product,
+                                        nbytes, sms, mhz, exps=rows + wp)
+    f32_ms = 1e3 * pairs * product / F32_FLOPS_PER_S
+    return {"fwd_bound_ms": ms,
+            "fwd_bound_by": "bytes" if term == "bytes" else "operations",
+            "fwd_bound_term": term, "fwd_bound_terms_ms": terms,
+            "fwd_bound_ms_f32": max(f32_ms, 1e3 * nbytes / HBM_BYTES_PER_S),
+            "fwd_sm_clock_mhz": mhz, "fwd_slice_len": length,
+            "fwd_slices": slices, "fwd_live_slices": live,
+            "fwd_partial_bytes": partial_bytes,
+            "fwd_partial_ms": 1e3 * partial_bytes / HBM_BYTES_PER_S}
+
+
 def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
     """K1 and K2 against their plain twins on one set of staged inputs:
-    errors, CUDA-event times and bounds. Raises if either disagrees."""
+    errors, determinism, CUDA-event times and bounds, and K1's product
+    through cuBLAS. Raises if either disagrees or is not deterministic."""
     import torch
 
     from tpu_gaussians_torch.kernels import splat_sep as K
@@ -690,6 +767,7 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
     lo, cnt, gdata, rows, wp, nb = staged
     with torch.no_grad():
         acc = K.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
+        acc_again = K.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
         ref = K.sep_fwd_plain(lo, cnt, gdata, rows, wp, nb)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         gband = torch.randn(acc.shape, generator=gen, device="cuda")
@@ -699,6 +777,8 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
         torch.cuda.synchronize()
         check(bool(torch.isfinite(acc).all() and torch.isfinite(out).all()),
               f"{name}: non-finite kernel output")
+        check(bool(torch.equal(acc, acc_again)),
+              f"{name}: K1 not deterministic")
         err_f = float((acc - ref).abs().max())
         check(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
               f"{name}: K1 disagrees with its twin (max abs err {err_f})")
@@ -709,6 +789,7 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
               f"{name}: K2 disagrees with its twin in {int(bad.sum())} "
               f"values (max abs err {err_b})")
         check(bool(torch.equal(out, again)), f"{name}: K2 not deterministic")
+        del acc_again, ref_b, again
         times = {
             "fwd_ms": time_ms(lambda: K.splat_sep_fwd(
                 lo, cnt, gdata, rows, wp, nb), reps),
@@ -719,10 +800,25 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
             "bwd_plain_ms": time_ms(lambda: K.sep_bwd_plain(
                 lo, cnt, gdata, gband, rows, wp, nb), reps),
         }
+        # K1's kernels alone per call (torch.profiler): the event time
+        # above also holds the wrapper's host work, which at the flagship's
+        # size is longer than the kernels.
+        times["fwd_device_ms"] = profile_calls(
+            lambda i: K.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb),
+            reps)["device_busy_ms_per_call"]
+        # The SM clock while K1 runs (launches queued for about 0.3 s).
+        for _ in range(max(1, int(300 / max(times["fwd_ms"], 1e-3)))):
+            K.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
+        mhz = sm_clock_mhz()
+        torch.cuda.synchronize()
+        lib_ms, lib_err = sep_library_product(lo, cnt, gdata, rows, wp, nb,
+                                              acc, reps)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # The least the card could take: the (gaussian, band) pairs this
-    # run's block ranges evaluate, at the f32 multiply-adds each needs
-    # per band pixel, against gdata, lo/cnt and the band planes read or
-    # written once (K2 also writes its (n_pad, 16) rows).
+    # run's block ranges evaluate. K1's on its terms above; K2's at the
+    # f32 multiply-adds each needs per band pixel, against gdata, lo/cnt
+    # and the band planes read or written once and its (n_pad, 16) rows
+    # written once.
     pairs = int(cnt.to(torch.int64).sum()) * nb
     # Of those, the pairs whose gaussian has weight (op > 0): the bound
     # above also counts the dead slots of the capacity in each block.
@@ -734,22 +830,24 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
     n_bands = lo.shape[0]
     band_bytes = n_bands * K.FEAT * rows * wp * 4
     in_bytes = gdata.numel() * 4 + 2 * n_bands * 4
-    bounds = {}
-    for kind, flops_px, nbytes in (
-            ("fwd", SEP_FWD_FLOPS_PER_PIXEL, in_bytes + band_bytes),
-            ("bwd", SEP_BWD_FLOPS_PER_PIXEL,
-             in_bytes + band_bytes + gdata.numel() * 4)):
-        ops_ms = 1e3 * pairs * rows * wp * flops_px / F32_FLOPS_PER_S
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        bounds[f"{kind}_bound_ms"] = max(ops_ms, bytes_ms)
-        bounds[f"{kind}_bound_by"] = ("operations" if ops_ms >= bytes_ms
-                                      else "bytes")
+    bounds = sep_fwd_bound(lo, cnt, gdata, rows, wp, nb, sms, mhz)
+    ops_ms = 1e3 * pairs * rows * wp * SEP_BWD_FLOPS_PER_PIXEL / (
+        F32_FLOPS_PER_S)
+    bytes_ms = 1e3 * (in_bytes + band_bytes + gdata.numel() * 4) / (
+        HBM_BYTES_PER_S)
+    bounds["bwd_bound_ms"] = max(ops_ms, bytes_ms)
+    bounds["bwd_bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     case = {"case": name, "n_pad": gdata.shape[0], "nb": nb, "rows": rows,
             "wp": wp, "n_bands": n_bands, "bands_with_work": bands,
             "pairs_evaluated": pairs, "alive_pairs": alive_pairs,
             "alive_share": alive_pairs / max(pairs, 1),
-            "fwd_max_abs_err": err_f,
-            "bwd_max_abs_err": err_b, **times, **bounds}
+            "fwd_max_abs_err": err_f, "fwd_max_abs_ref": float(
+                ref.abs().max()),
+            "bwd_max_abs_err": err_b, **times,
+            "fwd_library_ms": lib_ms, "fwd_library_call": (
+                "torch.bmm, cuBLAS f32 (TF32 off), on G and Ex formed "
+                "beforehand: the product's time, not the function's"),
+            "fwd_library_max_abs_diff": lib_err, **bounds}
     log("sep kernel case " + json.dumps(case))
     return case
 
@@ -1461,10 +1559,10 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"build {name}: {line.strip()}")
-    # K9a and K9b run their products on the tensor cores: their SASS holds
-    # HMMA.
+    # K1, K9a and K9b run their products on the tensor cores: their SASS
+    # holds HMMA.
     hmma = {}
-    for name in ("splat_v1_fwd", "splat_v1_bwd"):
+    for name in ("splat_sep_fwd", "splat_v1_fwd", "splat_v1_bwd"):
         hmma[name] = build.sass_count(build.library_path(name),
                                       f"{name}_kernel", "HMMA")
         log(f"build {name}: {hmma[name]} HMMA instructions in the kernel's "
@@ -1858,8 +1956,20 @@ def main() -> int:
                 "bound_ms": c[f"{kind_}_bound_ms"],
                 "bound_by": c[f"{kind_}_bound_by"],
                 "max_abs_err": c[f"{kind_}_max_abs_err"]} for c in sep_cases]
+        extra = {}
+        if name == "splat_sep_fwd":
+            # library_ms stays null: no single PyTorch call computes K1's
+            # function; cuBLAS on the product alone is reported beside it.
+            extra = {k: {c["case"]: c[f"fwd_{k}"] for c in sep_cases}
+                     for k in ("bound_term", "bound_terms_ms", "device_ms",
+                               "bound_ms_f32", "library_ms", "slice_len",
+                               "slices", "live_slices", "partial_bytes",
+                               "partial_ms")}
+            extra["product_library_ms"] = extra.pop("library_ms")
+            extra["hmma_in_sass"] = hmma[name]
+            extra["launches_axis_binned_preview"] = fit_ab["launches"][name]
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/splat.py:{line}",
-                           fit["launches"][name], sep, sep[0]))
+                           fit["launches"][name], sep, sep[0], **extra))
     kernels.append(row("sorted_bwd", "tpu_gaussians/ops/pallas/sorted.py:1013",
                        fit_s["launches"]["sorted_bwd"], bwd_cases,
                        bwd_cases[0], grad_max_err_over_scale=max(

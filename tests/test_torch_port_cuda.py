@@ -11,7 +11,8 @@ Tolerances:
   differently: rtol 1e-4 / atol 1e-5; and on a tile whose whole-tile exit
   decision fell on the other side of exit_t, the bound is exit_t itself.
 - splat_sep_fwd (K1): rtol 1e-5 / atol 1e-5, sums of positive terms in
-  another order.
+  another order (its product on the tensor cores, TF32 split three ways);
+  bit-identical across two launches.
 - splat_sep_bwd (K2): rtol 2e-4, and atol 2e-5 times the largest
   magnitude of the output column (at least 2e-5): the moments are sums of
   signed terms that cancel, whose f32 rounding is relative to the terms,
@@ -131,13 +132,17 @@ def assert_moments_close(out, ref):
 
 # Staged cases: a band with cnt = 0 (gaussians in the top rows only, n not
 # a multiple of nb), a gaussian straddling two bands, a 1-pixel-high frame,
-# and many gaussians per band (R = 32).
+# many gaussians per band (R = 32), the flagship fit's shape (R = 64, Wp
+# 128, 2 bands), and one band's range of about 40,000 gaussians spread over
+# some 200 of K1's slices, the last one partial.
 SEP_CASES = {
     "empty_bands": dict(n=700, height=256, width=96, y_max=60.0,
                         sigma_max=3.0),
     "straddle": dict(n=300, height=128, width=128),
     "one_row": dict(n=200, height=1, width=200),
     "many": dict(n=20000, height=96, width=256),
+    "flagship_shape": dict(n=3000, height=128, width=128),
+    "heavy": dict(n=40000, height=64, width=512, y_max=30.0),
 }
 
 
@@ -205,11 +210,20 @@ def test_tiled_render_matches_plain_renderer(cuda, footprint):
 @pytest.mark.parametrize("case", sorted(SEP_CASES))
 def test_splat_sep_kernels_match_plain_twins(cuda, case):
     lo, cnt, gdata, rows, wp, nb = sep_case(case, cuda)
+    length, slices = splat_sep.fwd_slices(lo.shape[0], rows, wp,
+                                          gdata.shape[0])
     if case == "empty_bands":
         assert (cnt == 0).any() and gdata.shape[0] % nb == 0
+    if case == "flagship_shape":
+        assert (rows, wp, lo.shape[0]) == (64, 128, 2) and slices > 1
+    if case == "heavy":
+        span = int(cnt.max()) * nb
+        assert span > 100 * length and span % length
     before = dict(splat_sep.launches)
     acc = splat_sep.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
+    acc_again = splat_sep.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
     torch.cuda.synchronize()
+    assert torch.equal(acc, acc_again)      # deterministic: no atomics
     ref = splat_sep.sep_fwd_plain(lo, cnt, gdata, rows, wp, nb)
     np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
@@ -220,10 +234,37 @@ def test_splat_sep_kernels_match_plain_twins(cuda, case):
     torch.cuda.synchronize()
     assert torch.equal(out, again)          # deterministic: no atomics
     assert splat_sep.launches == {
-        "splat_sep_fwd": before["splat_sep_fwd"] + 1,
+        "splat_sep_fwd": before["splat_sep_fwd"] + 2,
         "splat_sep_bwd": before["splat_sep_bwd"] + 2}
     ref_b = splat_sep.sep_bwd_plain(lo, cnt, gdata, gband, rows, wp, nb)
     assert_moments_close(out.cpu(), ref_b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wp,nb", [(96, 128), (128, 32)])
+def test_splat_sep_fwd_refuses_shapes_off_its_grid(cuda, wp, nb):
+    """K1 takes Wp and nb in multiples of 64, its column strip and gaussian
+    chunk (the staging rounds both up to multiples of 128): the wrapper
+    refuses Wp 96 and nb 32 before a launch, and so does the C entry
+    (cudaErrorInvalidValue, its output untouched)."""
+    lo, cnt, gdata, rows, _, _ = sep_case("straddle", cuda)
+    before = dict(splat_sep.launches)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        splat_sep.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
+    assert splat_sep.launches == before
+    out = torch.zeros((lo.shape[0], 5, rows, wp), device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error 1$"):
+        build.launch("splat_sep_fwd", (lo, cnt, gdata, out, out),
+                     lo.shape[0], rows, wp, nb, gdata.shape[0])
+    torch.cuda.synchronize()
+    assert not out.any()
+
+
+@pytest.mark.cuda
+def test_splat_sep_fwd_kernel_runs_on_tensor_cores(cuda):
+    build.build_all(["splat_sep_fwd"])
+    assert build.sass_count(build.library_path("splat_sep_fwd"),
+                            "splat_sep_fwd_kernel", "HMMA") > 0
 
 
 @pytest.mark.cuda

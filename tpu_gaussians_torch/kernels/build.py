@@ -124,6 +124,29 @@ def launch(name: str, tensors: Sequence[torch.Tensor], *scalars) -> None:
         raise RuntimeError(f"{name}_launch failed with CUDA error {err}")
 
 
+def build_others(name: str, paths: Sequence[Path]) -> dict:
+    """{tag: (library, nvcc output)}: this tree's build of kernel `name`
+    under tag "tree", and each other source in `paths` built now under
+    `_build/<name>_<stem>.so` (tag: its stem), all nvcc processes started
+    together. For the measurement tools that time sources against each
+    other; raises with nvcc's output if a build fails."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for path in paths:
+        so = BUILD / f"{name}_{path.stem}.so"
+        procs[path.stem] = (so, subprocess.Popen(
+            [nvcc(), *FLAGS, "-o", str(so), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    build_all([name])
+    out = {"tree": (library_path(name), logs.get(name, ""))}
+    for tag, (so, proc) in procs.items():
+        text = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{text}")
+        out[tag] = (so, text)
+    return out
+
+
 def sass_count(lib: Path, kernel: str, opcode: str) -> int:
     """How many `opcode` instructions the SASS of the function whose name
     contains `kernel` in library `lib` holds, by cuobjdump (the CUDA

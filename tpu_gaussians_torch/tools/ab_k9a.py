@@ -35,7 +35,6 @@ import ctypes
 import importlib.util
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -73,26 +72,6 @@ def ablation_sources(build):
         paths.append(build.BUILD / f"{name}.cu")
         paths[-1].write_text(text)
     return paths
-
-
-def build_others(build, paths):
-    """{tag: (library, nvcc output)} of the sources `paths`, built now
-    under `_build/splat_v1_fwd_<stem>.so`, beside this tree's build."""
-    build.BUILD.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for path in paths:
-        so = build.BUILD / f"{KERNEL}_{path.stem}.so"
-        procs[path.stem] = (so, subprocess.Popen(
-            [build.nvcc(), *build.FLAGS, "-o", str(so), str(path)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    build.build_all([KERNEL])
-    out = {"tree": (build.library_path(KERNEL), build.logs.get(KERNEL, ""))}
-    for tag, (so, proc) in procs.items():
-        text = proc.communicate(timeout=600)[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {tag}:\n{text}")
-        out[tag] = (so, text)
-    return out
 
 
 def launcher(cs, so: Path):
@@ -139,7 +118,7 @@ def main() -> int:
 
     cs.check(torch.cuda.is_available(), "needs a CUDA device")
     resolve_device("cuda")
-    libs = build_others(build, args.others + (
+    libs = build.build_others(KERNEL, args.others + (
         ablation_sources(build) if args.ablations else []))
     runs = {}
     for tag, (so, text) in libs.items():
