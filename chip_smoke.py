@@ -11,8 +11,8 @@ Phases, each of which fails the run by raising:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc for every kernel source, all started together; nvcc's
               seconds and ptxas' register and shared-memory lines; the count
-              of HMMA (tensor-core) instructions in K1's, K9a's and K9b's
-              SASS (cuobjdump), none of which may be 0
+              of HMMA (tensor-core) instructions in K1's, K8a's, K9a's and
+              K9b's SASS (cuobjdump), none of which may be 0
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -69,9 +69,14 @@ Phases, each of which fails the run by raising:
               gaussians on 512x512
  11. scale ewa accum  the same 100k EWA scene and views in accum mode
               (n >= 10,240 under accum_binned "auto" -> tile-binned): 10
-              train steps timed, a profile; K8a (binned_fwd), then K8b
-              (binned_bwd) on a seeded cotangent, against their twins on
-              view 0's lists, with the binner's stats and the live slots
+              train steps timed, a profile; K8a (binned_fwd, twice,
+              bit-identical), then K8b (binned_bwd) on a seeded cotangent,
+              against their twins on view 0's lists, with the binner's
+              stats and the live slots; K8a's device time (torch.profiler)
+              split between its main kernel and its slice sum, and its bound
+              on this card (its product on the tensor cores, the SM clock
+              read while it runs, the deciding term named) beside the
+              22-flop f32 one and the bytes of its slice partials
  12. binned vs dense  12,288 EWA gaussians at 512x512: render with
               accum_binned "on" (K8a) against "off" (K5), every overflow
               stat 0, image and alpha within rtol 1e-4 / atol 1e-5
@@ -94,8 +99,8 @@ Phases, each of which fails the run by raising:
  16. scale axis binned  phase 8's 100k axis scene and views under
               accum_binned "on": 10 train steps timed, a profile; K7a, then
               K7b on a seeded cotangent, against their twins on view 0's
-              lists, with the binner's stats and the live slots; view 0
-              rendered through K7a against K1, with nothing dropped (the
+              lists (K7a twice, bit-identical), with the binner's stats and
+              the live slots; view 0 rendered through K7a against K1, with nothing dropped (the
               tile capacity raised to n if the default drops pairs)
  17. scale ewa exact  1,000,000 EWA gaussians (phase 3's generator at the
               serving path's 1M size, seeded quaternions), 4 views at
@@ -128,9 +133,10 @@ K8b and K9b to rtol 2e-4 and atol 2e-5 times the largest magnitude of their
 output column (at least 1; their moments are sums of signed terms that
 cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest magnitude of its
 output column (the JAX suite's tolerance for the sorted backward: ctg - P_i
-cancels and is divided by 1 - a); K1, K2, K4, K6, K7b, K8b, K9a and K9b
-are bit-identical across two launches (K1, K9a and K9b run their products
-on the tensor cores, in TF32 split three ways, and sum in a fixed order). K9a
+cancels and is divided by 1 - a); K1, K2, K4, K6, K7a, K7b, K8a, K8b, K9a
+and K9b are bit-identical across two launches (K1, K8a, K9a and K9b run their
+products on the tensor cores, in TF32 split three ways, and sum in a fixed
+order). K9a
 against K5 and binned against dense renders: rtol 1e-4 / atol 1e-5;
 gradients through K9 against K5/K6, and the mixed route's against the tile
 grid's: rtol 2e-3 and atol 2e-4 times the largest magnitude. Kernel times
@@ -148,6 +154,7 @@ import argparse
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -196,6 +203,15 @@ V2_BWD_FLOPS_PER_PAIR = 52
 # multiply-adds). The exps are not counted.
 BINNED_FWD_FLOPS_PER_PAIR = 22
 BINNED_BWD_FLOPS_PER_PAIR = 44
+# K8a's on the tensor-core terms (csrc/binned_fwd.cu runs its 8-wide
+# product on the tensor cores, as the TPU did on its matrix unit), as K9a's
+# below: the product's 16 flops per pair (8 multiply-adds), and the
+# elementwise work the function needs per pair with the row terms (dy,
+# b dy, c dy^2) paid once per slot and row and op folded into the feature
+# rows: dx (1) and e = fma(dx, fma(a, dx, b dy), c dy^2) (4). The 22-flop
+# f32 bound above is printed beside it (fwd_bound_ms_22flop).
+BINNED_FWD_ELEMENTWISE_FLOPS_PER_PAIR = 5
+BINNED_FWD_PRODUCT_FLOPS_PER_PAIR = 16
 # Per (slot, pixel) pair of K7a/K7b, counted from the function's products
 # as K1/K2's are, not from the kernels' loops: acc += G2 . Ex, one
 # multiply-add per feature (G2 = featsop x Ey is per slot and row); the
@@ -236,6 +252,12 @@ V1_BWD_ELEMENTWISE_FLOPS_PER_PAIR = 11
 V1_FWD_PRODUCT_FLOPS_PER_PAIR = 16
 V1_FWD_ELEMENTWISE_FLOPS_PER_PAIR = 5
 TF32_SPLIT = 3
+# The port's kernels by their CUDA names (csrc/*.cu), for profile rows.
+PORT_KERNELS = {f"{k}_kernel" for k in (
+    "sorted_fwd", "sorted_bwd", "splat_sep_fwd", "splat_sep_bwd",
+    "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd",
+    "binned_sep_fwd", "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd",
+    "slice_sum", "segment_sum")}
 FIT_ARGS = ["--targets_dir", "assets/example_scene", "--camera_npz",
             "assets/example_scene/cameras.npz", "--iters", "150", "--use_sh",
             "--num_gaussians", "800"]
@@ -526,6 +548,15 @@ def profile_calls(fn, calls: int) -> dict:
             and "#" not in e.key]          # not a range, e.g. Adam.step's
     rows.sort(key=lambda r: -r["ms_per_call"])
     busy = sum(r["ms_per_call"] for r in rows)
+    # Every row of the port's own kernels, which "top" may cut off: ms and
+    # launches per call by kernel name.
+    port = {}
+    for r in rows:
+        name = re.search(r"::(\w+_kernel)[<(]", r["kernel"])
+        if name and name.group(1) in PORT_KERNELS:
+            ms, n = port.get(name.group(1), (0.0, 0.0))
+            port[name.group(1)] = (ms + r["ms_per_call"],
+                                   n + r["calls_per_call"])
     def outermost_aten(e) -> bool:
         if e.device_type != DeviceType.CPU or not e.name.startswith(
                 "aten::"):
@@ -543,7 +574,7 @@ def profile_calls(fn, calls: int) -> dict:
             "device_busy_share": busy / wall_ms if rows else None,
             "kernels_per_call": sum(r["calls_per_call"] for r in rows),
             "host_ops_per_call": host_ops / calls,
-            "top": rows[:12]}
+            "top": rows[:12], "port_kernels": port}
 
 
 def launched_blocks(fn, kernel: str) -> int:
@@ -1127,13 +1158,64 @@ def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
     return case
 
 
+def binned_fwd_bound(cnt, cap: int, sms: int, mhz: float) -> dict:
+    """K8a's bound on this card for the listed (live) slots of each tile
+    times its 2048 pixels, for a kernel that runs its product on the tensor
+    cores (csrc/binned_fwd.cu does, as the TPU did on its matrix unit): the
+    largest of tensor_core_bound's terms at the SM clock `mhz`, against the
+    listed slots (64 B) and cnt read once and the (8, tiles*2048) sums
+    written once. The slice partials are K8a's design, not its function,
+    and stay out of the bound: their bytes (each live slice's (8, 2048)
+    plane written and read once) and their time at the memory rate are
+    reported beside it. The 22-flop f32 figure beside it too; K8a's
+    slices."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import binned as KB
+    from tpu_gaussians_torch.ops.binning import TPS
+
+    n_tiles = cnt.shape[0]
+    live_t = torch.clamp(cnt.to(torch.int64), 0, cap)
+    pairs = int(live_t.sum()) * TPS
+    length, slices = KB.fwd_slices(n_tiles, cap)
+    live_slices = int(torch.clamp((live_t + length - 1) // length,
+                                  min=1).sum())
+    partial_bytes = 2 * live_slices * 8 * TPS * 4 if slices > 1 else 0
+    nbytes = int(live_t.sum()) * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS
+    ms, term, terms = tensor_core_bound(
+        pairs, BINNED_FWD_ELEMENTWISE_FLOPS_PER_PAIR,
+        BINNED_FWD_PRODUCT_FLOPS_PER_PAIR, nbytes, sms, mhz)
+    return {"fwd_bound_ms": ms,
+            "fwd_bound_by": "bytes" if term == "bytes" else "operations",
+            "fwd_bound_term": term, "fwd_bound_terms_ms": terms,
+            "fwd_bound_ms_22flop": max(
+                1e3 * BINNED_FWD_FLOPS_PER_PAIR * pairs / F32_FLOPS_PER_S,
+                1e3 * nbytes / HBM_BYTES_PER_S),
+            "fwd_sm_clock_mhz": mhz, "fwd_slice_len": length,
+            "fwd_slices": slices, "fwd_live_slices": live_slices,
+            "fwd_partial_bytes": partial_bytes,
+            "fwd_partial_ms": 1e3 * partial_bytes / HBM_BYTES_PER_S}
+
+
+def device_split(prof: dict, main: str, second: str) -> dict:
+    """A two-kernel wrapper's device ms per call from profile_calls' rows:
+    the kernel whose name holds `main`, and the one whose name holds
+    `second`."""
+    return {"main": sum(r["ms_per_call"] for r in prof["top"]
+                        if main in r["kernel"]),
+            "second": sum(r["ms_per_call"] for r in prof["top"]
+                          if second in r["kernel"])}
+
+
 def binned_case(name: str, g, view, proj, width: int, height: int,
                 seed: int, reps: int = 20, footprint: str = "ewa") -> dict:
     """K8a, then K8b on a seeded N(0,1) cotangent of K8a's output (for the
     axis footprint the separable K7a and K7b), against their plain twins on
     one view's lists, built by the training path's own
-    ops/binned.accum_lists: errors, the backward's determinism, CUDA-event
-    times, bounds, the binner's stats and the live slots. Raises on a
+    ops/binned.accum_lists: errors, both directions' determinism, CUDA-event
+    times, bounds, the binner's stats and the live slots. For K8a also its
+    device time split between its main kernel and its slice sum, and its
+    bound on the tensor-core terms (binned_fwd_bound). Raises on a
     disagreement."""
     import torch
 
@@ -1157,6 +1239,7 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
         s = prepare_splats(g, view, proj, width, height, footprint=footprint)
         gdense, cnt, tiles_x, _, stats = accum_lists(s, height, width)
         acc = fwd(gdense, cnt, tiles_x)
+        acc_again = fwd(gdense, cnt, tiles_x)
         ref = fwd_plain(gdense, cnt, tiles_x)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         g8 = torch.randn(acc.shape, generator=gen, device="cuda")
@@ -1172,6 +1255,9 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
               f"{err_f})")
         check(bool(torch.equal(out, again)),
               f"{name}: {ids[1]} not deterministic")
+        check(bool(torch.equal(acc, acc_again)),
+              f"{name}: {ids[0]} not deterministic")
+        del acc_again
         scale = torch.clamp(ref_b.abs().amax(dim=0), min=1.0)
         bad = (out - ref_b).abs() > 2e-4 * ref_b.abs() + 2e-5 * scale
         err_b = float((out - ref_b).abs().max())
@@ -1186,6 +1272,20 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
             "bwd_plain_ms": time_ms(lambda: bwd_plain(gdense, cnt, g8,
                                                       tiles_x), 5, 1),
         }
+        if footprint == "ewa":
+            # K8a's kernels alone per call (torch.profiler): the event time
+            # above also holds the wrapper's host work. Then the SM clock
+            # while K8a runs (launches queued for about 0.3 s).
+            prof = profile_calls(lambda i: fwd(gdense, cnt, tiles_x), reps)
+            split = device_split(prof, "binned_fwd_kernel",
+                                 "slice_sum_kernel")
+            times.update(fwd_device_ms=prof["device_busy_ms_per_call"],
+                         fwd_device_ms_main=split["main"],
+                         fwd_device_ms_slice_sum=split["second"])
+            for _ in range(max(1, int(300 / max(times["fwd_ms"], 1e-3)))):
+                fwd(gdense, cnt, tiles_x)
+            mhz = sm_clock_mhz()
+            torch.cuda.synchronize()
     # The least the card could take: the listed (live) slots of each tile
     # times its 2048 pixels, at the forward's (backward's) operations each,
     # against the listed slots (64 B) and cnt read once and the
@@ -1207,11 +1307,16 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
         bounds[f"{kind}_bound_ms"] = max(ops_ms, bytes_ms)
         bounds[f"{kind}_bound_by"] = ("operations" if ops_ms >= bytes_ms
                                       else "bytes")
+    if footprint == "ewa":
+        bounds.update(binned_fwd_bound(
+            cnt, cap, torch.cuda.get_device_properties(0).multi_processor_count,
+            mhz))
     case = {"case": name, "footprint": footprint, "n": g.capacity,
             "width": width, "height": height,
             "tiles": n_tiles, "cap": cap, "slots_live": live,
             "slots_processed": processed, "max_cnt": int(cnt.max()),
-            "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b,
+            "fwd_max_abs_err": err_f, "fwd_max_abs_ref": float(
+                ref.abs().max()), "bwd_max_abs_err": err_b,
             "bwd_max_abs_ref": float(ref_b.abs().max()),
             "stats": {k: int(v) for k, v in stats.items()},
             **times, **bounds}
@@ -1559,10 +1664,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"build {name}: {line.strip()}")
-    # K1, K9a and K9b run their products on the tensor cores: their SASS
-    # holds HMMA.
+    # K1, K8a, K9a and K9b run their products on the tensor cores: their
+    # SASS holds HMMA.
     hmma = {}
-    for name in ("splat_sep_fwd", "splat_v1_fwd", "splat_v1_bwd"):
+    for name in ("splat_sep_fwd", "binned_fwd", "splat_v1_fwd",
+                 "splat_v1_bwd"):
         hmma[name] = build.sass_count(build.library_path(name),
                                       f"{name}_kernel", "HMMA")
         log(f"build {name}: {hmma[name]} HMMA instructions in the kernel's "
@@ -1996,8 +2102,17 @@ def main() -> int:
                "bound_ms": c[f"{kind_}_bound_ms"],
                "bound_by": c[f"{kind_}_bound_by"],
                "max_abs_err": c[f"{kind_}_max_abs_err"]} for c in binned_cases]
+        extra = {}
+        if name == "binned_fwd":
+            extra = {k: {c["case"]: c[f"fwd_{k}"] for c in binned_cases}
+                     for k in ("bound_term", "bound_terms_ms",
+                               "bound_ms_22flop", "device_ms",
+                               "device_ms_main", "device_ms_slice_sum",
+                               "slice_len", "slices", "live_slices",
+                               "partial_bytes", "partial_ms")}
+            extra["hmma_in_sass"] = hmma[name]
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/binned.py:{line}",
-                           fit_eb["launches"][name], bc, bc[0]))
+                           fit_eb["launches"][name], bc, bc[0], **extra))
     for name, kind_, line in (("binned_sep_fwd", "fwd", 258),
                               ("binned_sep_bwd", "bwd", 277)):
         bc = [{"case": c["case"], "ms": c[f"{kind_}_ms"],

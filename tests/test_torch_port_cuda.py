@@ -24,7 +24,8 @@ Tolerances:
   and the kernel updates T per gaussian where the twin does per 128-slot
   sub-block.
 - splat_v2_fwd (K5) and binned_fwd (K8a): rtol 1e-5 / atol 1e-5, sums of
-  positive terms in another order.
+  positive terms in another order (K8a's product on the tensor cores, TF32
+  split three ways); K8a bit-identical across two launches.
 - splat_v2_bwd (K6) and binned_bwd (K8b): as K2, rtol 2e-4 and atol 2e-5
   times the largest magnitude of the output column; bit-identical across
   two launches.
@@ -405,32 +406,78 @@ def test_splat_v2_bwd_kernel_matches_plain_twin(cuda, case):
     assert_moments_close(out.cpu(), ref.cpu())
 
 
+def _scene_grid_counts():
+    """128 tile counts at cap 8192 (the 100k 512x512 scene's grid, where
+    K8a's slices are 1024 slots): seeded, with tile 0 full, tile 1 empty,
+    tile 2 at 3000 (not a multiple of the slice), 3 and 4 either side of a
+    slice edge."""
+    cnt = np.random.default_rng(4).integers(0, 8193, 128)
+    cnt[:5] = (8192, 0, 3000, 1024, 1025)
+    return tuple(int(c) for c in cnt)
+
+
+# (tiles_x, tiles_y, cap, cnt) of K8a/K8b's card cases.
+BINNED_CASES = {
+    "full_partial_empty_short": (TILES_X, TILES_Y, CAP, (1024, 600, 0, 300)),
+    "chunk_edges": (TILES_X, TILES_Y, CAP, (1, 512, 513, 1024)),
+    "cap8192_scene_grid": (4, 32, 8192, _scene_grid_counts()),
+    "flagship_shape": (1, 8, 8192, (886, 0, 129, 1100, 8192, 1, 640, 300)),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cnt", [(1024, 600, 0, 300), (1, 512, 513, 1024)],
-                         ids=["full_partial_empty_short", "chunk_edges"])
-def test_binned_kernels_match_plain_twins(cuda, cnt):
+@pytest.mark.parametrize("case", list(BINNED_CASES))
+def test_binned_kernels_match_plain_twins(cuda, case):
     """K8a and K8b on lists with a tile at cap, one empty, and counts on
-    either side of a 512-slot chunk edge."""
-    gdense, cnt_t = synthetic_lists(False, device=cuda, cnt=cnt)
+    either side of a 512-slot chunk edge; at cap 8192 on the 100k scene's
+    128 tiles (K8a's slices of 1024, a count that is not a multiple of
+    it) and on the flagship's 8 tiles (slices of 128). K8a bit-identical
+    across two launches, an empty tile's sums exactly zero."""
+    tiles_x, tiles_y, cap, cnt = BINNED_CASES[case]
+    n_tiles = tiles_x * tiles_y
+    if cap == CAP:       # synthetic_lists' own grid and opacities
+        gdense, cnt_t = synthetic_lists(False, device=cuda, cnt=cnt)
+    else:
+        gd, cnt_np = slot_lists(tiles_x, tiles_y, cnt, False,
+                                [(0.2, 0.9)] * n_tiles, cap=cap)
+        gdense = torch.from_numpy(gd).to(cuda)
+        cnt_t = torch.from_numpy(cnt_np).to(cuda)
+    length, slices = binned.fwd_slices(n_tiles, cap)
+    if case == "cap8192_scene_grid":
+        assert (length, slices) == (1024, 8) and cnt[2] % length
+    if case == "flagship_shape":
+        assert (length, slices) == (128, 64)
     before = dict(binned.launches)
-    acc = binned.binned_fwd(gdense, cnt_t, TILES_X)
+    acc = binned.binned_fwd(gdense, cnt_t, tiles_x)
+    acc_again = binned.binned_fwd(gdense, cnt_t, tiles_x)
     g8 = torch.randn(acc.shape, generator=torch.Generator().manual_seed(8)
                      ).to(cuda)
-    out = binned.binned_bwd(gdense, cnt_t, g8, TILES_X)
-    again = binned.binned_bwd(gdense, cnt_t, g8, TILES_X)
+    out = binned.binned_bwd(gdense, cnt_t, g8, tiles_x)
+    again = binned.binned_bwd(gdense, cnt_t, g8, tiles_x)
     torch.cuda.synchronize()
     assert binned.launches == {**before,
-                               "binned_fwd": before["binned_fwd"] + 1,
+                               "binned_fwd": before["binned_fwd"] + 2,
                                "binned_bwd": before["binned_bwd"] + 2}
-    assert torch.equal(out, again)          # deterministic: no atomics
-    ref = binned.binned_fwd_plain(gdense, cnt_t, TILES_X)
+    assert torch.equal(acc, acc_again)      # deterministic: no atomics
+    assert torch.equal(out, again)
+    ref = binned.binned_fwd_plain(gdense, cnt_t, tiles_x)
     np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
-    ref_b = binned.binned_bwd_plain(gdense, cnt_t, g8, TILES_X)
+    ref_b = binned.binned_bwd_plain(gdense, cnt_t, g8, tiles_x)
     assert_moments_close(out.cpu(), ref_b.cpu())
-    rows = out.reshape(4, CAP, 16).cpu()
+    rows = out.reshape(n_tiles, cap, 16).cpu()
+    sums = acc.reshape(8, n_tiles, 2048).cpu()
     for t, c in enumerate(cnt):              # chunks at or past cnt: zero
         assert not rows[t, -(-c // 512) * 512:].any()
+        if c == 0:
+            assert not sums[:, t].any()
+
+
+@pytest.mark.cuda
+def test_binned_fwd_kernel_runs_on_tensor_cores(cuda):
+    build.build_all(["binned_fwd"])
+    assert build.sass_count(build.library_path("binned_fwd"),
+                            "binned_fwd_kernel", "HMMA") > 0
 
 
 @pytest.mark.cuda

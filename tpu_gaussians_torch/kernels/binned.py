@@ -3,12 +3,14 @@
 their plain twins.
 
 `binned_fwd` launches `csrc/binned_fwd.cu` (K8a, the replacement of the TPU
-kernel `tpu_gaussians/ops/pallas/binned.py:_binned_fwd_kernel`) and
-`binned_bwd` launches `csrc/binned_bwd.cu` (K8b, replacing
-`_binned_bwd_kernel`) for CUDA tensors; for CPU tensors each runs its plain
-twin (`binned_fwd_plain`, `binned_bwd_plain`), the TPU grid's algorithm in
-torch: per tile, per 512-slot chunk below the tile's count. Neither falls
-back from one to the other.
+kernel `tpu_gaussians/ops/pallas/binned.py:_binned_fwd_kernel`; its product
+on the tensor cores, each tile's slot list split into slices whose
+partials a second pass adds in order, `fwd_slices`) and `binned_bwd`
+launches `csrc/binned_bwd.cu` (K8b, replacing `_binned_bwd_kernel`) for
+CUDA tensors; for CPU tensors each runs its plain twin (`binned_fwd_plain`,
+`binned_bwd_plain`), the TPU grid's algorithm in torch: per tile, per
+512-slot chunk below the tile's count. Neither falls back from one to the
+other.
 
 Both take the per-tile slot lists row-major, gdense (n_tiles*cap, 16) f32
 with rows [px, py, conic_a, conic_b, conic_c, op, feats(8), 0, 0] (the
@@ -48,6 +50,8 @@ gdense rows.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -207,6 +211,15 @@ def _launch(name: str, args, out: torch.Tensor, tiles_x: int, n_tiles: int,
     launches[name] += 1
 
 
+@functools.lru_cache(maxsize=None)
+def fwd_slices(n_tiles: int, cap: int):
+    """(slice length, slices) into which K8a splits each tile's slot list
+    for these shapes: the kernel's own rule, read from its library. Host
+    values only: no device-to-host copy."""
+    length = build.load("binned_fwd").binned_fwd_slice_len(n_tiles, cap)
+    return length, -(-cap // length)
+
+
 def binned_fwd(gdense: torch.Tensor, cnt: torch.Tensor,
                tiles_x: int) -> torch.Tensor:
     """K8a -> acc (8, n_tiles*2048): the CUDA kernel for CUDA tensors, the
@@ -216,7 +229,12 @@ def binned_fwd(gdense: torch.Tensor, cnt: torch.Tensor,
         return binned_fwd_plain(gdense, cnt, tiles_x)
     out = torch.empty((FEAT_PAD, n_tiles * TPS), dtype=torch.float32,
                       device=gdense.device)
-    _launch("binned_fwd", (gdense, cnt), out, tiles_x, n_tiles, cap)
+    # The slices' partials, which the kernel's second pass adds in slice
+    # order; with one slice the kernel writes out itself.
+    _, slices = fwd_slices(n_tiles, cap)
+    part = out if slices == 1 else torch.empty(
+        (slices, *out.shape), dtype=torch.float32, device=gdense.device)
+    _launch("binned_fwd", (gdense, cnt, part), out, tiles_x, n_tiles, cap)
     return out
 
 

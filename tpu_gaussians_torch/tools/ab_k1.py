@@ -31,17 +31,16 @@ Needs one NVIDIA GPU and nvcc.
 
 from __future__ import annotations
 
-import argparse
 import contextlib
 import ctypes
-import importlib.util
 import io
 import json
-import statistics
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[2]
+import ab_builds
+
+ROOT = ab_builds.ROOT
 KERNEL = "splat_sep_fwd"
 
 
@@ -106,88 +105,29 @@ def staged_cases(cs, seed: int):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__,
-                                 formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("others", nargs="*", type=Path)
-    ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    args, cs = ab_builds.setup(__doc__)
 
     import torch
 
-    from tpu_gaussians_torch.core.types import resolve_device
-    from tpu_gaussians_torch.kernels import build, splat_sep
+    from tpu_gaussians_torch.kernels import splat_sep
 
-    cs.check(torch.cuda.is_available(), "needs a CUDA device")
-    resolve_device("cuda")
-    libs = build.build_others(KERNEL, args.others)
-    runs, hmma = {}, {}
-    for tag, (so, text) in libs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build {tag}: {line.strip()}", flush=True)
-        hmma[tag] = build.sass_count(so, f"{KERNEL}_kernel", "HMMA")
-        print(f"build {tag}: {hmma[tag]} HMMA instructions in the kernel's "
-              f"SASS", flush=True)
-        runs[tag] = launcher(cs, so)
-    names = list(runs)
+    runs, hmma = ab_builds.load_builds(KERNEL, args.others,
+                                       lambda so: launcher(cs, so))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-
     for case, kargs in staged_cases(cs, args.seed):
         lo, cnt, gdata, rows, wp, nb = kargs
-        with torch.no_grad():
-            ref, plain_ms = cs.timed(lambda: splat_sep.sep_fwd_plain(*kargs),
-                                     5)
-            tree = runs["tree"](*kargs)
-            kernels = {}
-            for tag in names:
-                acc = runs[tag](*kargs)
-                again = runs[tag](*kargs)
-                torch.cuda.synchronize()
-                ok = bool(torch.isfinite(acc).all()
-                          and torch.allclose(acc, ref, rtol=1e-5, atol=1e-5))
-                kernels[tag] = {
-                    "twin_ok": ok, "bitwise_repeat": bool(torch.equal(acc,
-                                                                      again)),
-                    "max_abs_err": float((acc - ref).abs().max()),
-                    "vs_tree_max_abs_diff": float((acc - tree).abs().max()),
-                    "hmma_in_sass": hmma[tag]}
-                if tag == "tree":
-                    cs.check(ok, f"{case}: K1 disagrees with its twin "
-                             f"({kernels[tag]['max_abs_err']})")
-                    cs.check(kernels[tag]["bitwise_repeat"],
-                             f"{case}: K1 not deterministic")
-            max_ref = float(ref.abs().max())
-            del ref, tree, acc, again
-            rounds = {tag: [] for tag in names}
-            for _ in range(args.rounds):
-                for tag in names + names[::-1]:
-                    rounds[tag].append(cs.time_ms(lambda: runs[tag](*kargs),
-                                                  20))
-            ms = {tag: statistics.median(r) for tag, r in rounds.items()}
-            device_ms = {tag: cs.profile_calls(
-                lambda i: runs[tag](*kargs), 20)["device_busy_ms_per_call"]
-                for tag in names}
-            for _ in range(max(1, int(300 / max(ms["tree"], 1e-3)))):
-                runs["tree"](*kargs)
-            mhz = cs.sm_clock_mhz()
-            torch.cuda.synchronize()
-        bound = cs.sep_fwd_bound(lo, cnt, gdata, rows, wp, nb, sms, mhz)
-        for tag in names:
-            kernels[tag].update(
-                ms=ms[tag], rounds_ms=rounds[tag], device_ms=device_ms[tag],
-                share_of_bound=bound["fwd_bound_ms"] / device_ms[tag])
+        kernels, info = ab_builds.compare(
+            cs, f"K1 {case}", runs, hmma, kargs, splat_sep.sep_fwd_plain,
+            args.rounds, feature_dim=1)
+        bound = cs.sep_fwd_bound(lo, cnt, gdata, rows, wp, nb, sms,
+                                 info.pop("sm_clock_mhz"))
+        for k in kernels.values():
+            k["share_of_bound"] = bound["fwd_bound_ms"] / k["device_ms"]
         print(json.dumps({
             "case": case, "n_pad": gdata.shape[0], "nb": nb, "rows": rows,
             "wp": wp, "n_bands": lo.shape[0],
             "pairs_evaluated": int(cnt.to(torch.int64).sum()) * nb,
-            "max_abs_ref": max_ref, "plain_ms": plain_ms, **bound,
-            "kernels": kernels}), flush=True)
+            **info, **bound, "kernels": kernels}), flush=True)
     print(cs.nvidia_smi_line(), flush=True)
     return 0
 
