@@ -11,8 +11,8 @@ Phases, each of which fails the run by raising:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc for every kernel source, all started together; nvcc's
               seconds and ptxas' register and shared-memory lines; the count
-              of HMMA (tensor-core) instructions in K1's, K8a's, K9a's and
-              K9b's SASS (cuobjdump), none of which may be 0
+              of HMMA (tensor-core) instructions in K1's, K2's, K8a's, K9a's
+              and K9b's SASS (cuobjdump), none of which may be 0
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -38,13 +38,16 @@ Phases, each of which fails the run by raising:
               K2 900 and no other kernel;
               then a torch.profiler breakdown of train steps, and the band
               kernels K1 (splat_sep_fwd, twice, bit-identical) and K2
-              (splat_sep_bwd) against their twins on the fitted model's
-              staged inputs; K1's bound on this card (its product on the
-              tensor cores, the SM clock read while it runs: the largest of
-              the TF32 product, f32 operand, SFU exp and byte terms, the
-              deciding one named) beside the 10-flop f32 one, and K1's
-              product alone through one cuBLAS f32 torch.bmm on factors
-              formed beforehand (a yardstick the port never calls)
+              (splat_sep_bwd, twice, bit-identical) against their twins on
+              the fitted model's staged inputs; each one's device time
+              (torch.profiler; K2's main kernel and its slice sum apart) and
+              bound on this card (their products on the tensor cores, the SM
+              clock read while each runs: the largest of the TF32 product,
+              f32 elementwise, SFU exp and byte terms, the deciding one
+              named) beside the 10- and 20-flop f32 ones, each one's slices
+              and partial bytes, and the products alone through cuBLAS f32
+              torch.bmm on factors formed beforehand (K1's one call, K2's
+              two: a yardstick the port never calls)
   8. scale    100,000 alive gaussians (the scene generator of phase 3), 4
               orbit views at 512x512 (R = 32, 16 bands), random targets from
               --seed: 10 train steps timed with CUDA events, a profile, and
@@ -57,12 +60,14 @@ Phases, each of which fails the run by raising:
               steps;
               K5 and K6 against their twins on the fitted model (the
               preview's inputs), and K3 and K4 against theirs on its EWA
-              tile lists
+              tile lists, K3's time (events and torch.profiler) and bound
+              on those lists beside K4's
  10. scale sorted  100,000 alive EWA gaussians (phase 8's scene, seeded
               quaternions), 4 views at 512x512, sorted with the measured
               pair budget: 10 train steps timed, a profile; K3, then K4 on
               K3's outputs, against their twins on the binner's lists, for
-              both footprints, with the blocks K4's launch takes (more
+              both footprints (K3 timed and bounded there too), with the
+              blocks K4's launch takes (more
               than tiles; the grid of its kernel event in a torch.profiler
               trace); sorted-render gradients against the plain renderer
               on a small scene; K5 and K6 against their twins at 8,192 EWA
@@ -134,9 +139,9 @@ output column (at least 1; their moments are sums of signed terms that
 cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest magnitude of its
 output column (the JAX suite's tolerance for the sorted backward: ctg - P_i
 cancels and is divided by 1 - a); K1, K2, K4, K6, K7a, K7b, K8a, K8b, K9a
-and K9b are bit-identical across two launches (K1, K8a, K9a and K9b run their
-products on the tensor cores, in TF32 split three ways, and sum in a fixed
-order). K9a
+and K9b are bit-identical across two launches (K1, K2, K8a, K9a and K9b run
+their products on the tensor cores, in TF32 split three ways, and sum in a
+fixed order). K9a
 against K5 and binned against dense renders: rtol 1e-4 / atol 1e-5;
 gradients through K9 against K5/K6, and the mixed route's against the tile
 grid's: rtol 2e-3 and atol 2e-4 times the largest magnitude. Kernel times
@@ -165,23 +170,33 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores, dense TF32 FLOP/s on the tensor cores, and the
-# SFU's exps per SM and clock (times the SMs and the SM clock nvidia-smi
-# reports during the run).
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32
+# FLOP/s outside the tensor cores. The tensor cores' dense TF32 flops and
+# the SFU's exps per SM and clock, times the SMs and the SM clock nvidia-smi
+# reports during the run: the data sheet's 495 TFLOP/s in TF32 is 132 SMs x
+# 2048 flops at 1830 MHz, and a card that runs at 1980 MHz does 535.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-TF32_FLOPS_PER_S = 495e12
+TF32_FLOPS_PER_SM_CLOCK = 2048
 SFU_EXP_PER_SM_CLOCK = 16
 # f32 operations per (slot, pixel) the compositing evaluates: the alpha
-# product and exponent terms, cutoff and clamp, T*a, four multiply-adds into
-# r, g, b, z (two each) and the transmittance update.
-SORTED_FLOPS_PER_EVAL = 16
+# product and exponent terms (5 for the factorised axis form, 11 for the
+# general conic, as K4's count below), cutoff and clamp, T*a, four
+# multiply-adds into r, g, b, z (two each) and the transmittance update.
+SORTED_FLOPS_PER_EVAL = {"axis": 16, "ewa": 22}
 # f32 operations per (gaussian, band) pair and per pixel of the band: one
 # multiply-add per feature plane (5) in K1; two in K2 (the gG and gEx
 # products). The R + Wp exps per pair (a few percent) are not counted.
 SEP_FWD_FLOPS_PER_PIXEL = 2 * 5
 SEP_BWD_FLOPS_PER_PIXEL = 2 * 2 * 5
+# K2's on the tensor-core terms (csrc/splat_sep_bwd.cu runs both products
+# on the tensor cores, as the TPU did on its matrix unit): the products'
+# SEP_BWD_FLOPS_PER_PIXEL per band pixel, and the f32 work the function
+# needs per (gaussian, band) pair beside them: per band row G = featsop x Ey
+# (5), g_featop and gEy from gG (5 multiply-adds each), ty, u_y, t2 and the
+# Mdy and Myy sums (6); per column tx, u_x, t1 and the Mdx and Mxx sums (6).
+SEP_BWD_ELEMENTWISE_FLOPS_PER_ROW = 5 + 2 * 2 * 5 + 6
+SEP_BWD_ELEMENTWISE_FLOPS_PER_COLUMN = 6
 # f32 operations per composited (slot, pixel) in K4's pixel loop
 # (csrc/sorted_bwd.cu): dy; the exponent and alpha (11 for the general
 # conic, 5 for the factorised axis form); cutoff and clamp; T*a; f.g8 (8
@@ -257,7 +272,7 @@ PORT_KERNELS = {f"{k}_kernel" for k in (
     "sorted_fwd", "sorted_bwd", "splat_sep_fwd", "splat_sep_bwd",
     "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd",
     "binned_sep_fwd", "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd",
-    "slice_sum", "segment_sum")}
+    "slice_sum", "segment_sum", "splat_sep_bwd_sum")}
 FIT_ARGS = ["--targets_dir", "assets/example_scene", "--camera_npz",
             "assets/example_scene/cameras.npz", "--iters", "150", "--use_sh",
             "--num_gaussians", "800"]
@@ -298,14 +313,15 @@ def tensor_core_bound(pairs: int, elementwise: int, product: int,
     """(bound ms, deciding term, every term's ms) of a kernel that runs its
     per-pair product on the tensor cores: the largest of `elementwise` f32
     flops per pair at the f32 rate, `product` flops per pair times the
-    TF32 split at the TF32 rate, `exps` exps per pair on the SFU (16 per SM
-    and clock at the SM clock `mhz`), and `nbytes` at the memory rate."""
+    TF32 split on the tensor cores (2048 per SM and clock), `exps` exps per
+    pair on the SFU (16 per SM and clock), both at the SM clock `mhz`, and
+    `nbytes` at the memory rate."""
+    per_s = sms * mhz * 1e6               # SM clocks per second, all SMs
     terms = {
         "f32 elementwise": 1e3 * elementwise * pairs / F32_FLOPS_PER_S,
         "tf32 products": 1e3 * TF32_SPLIT * product * pairs
-        / TF32_FLOPS_PER_S,
-        "sfu exp": 1e3 * exps * pairs / (SFU_EXP_PER_SM_CLOCK * sms * mhz
-                                         * 1e6),
+        / (TF32_FLOPS_PER_SM_CLOCK * per_s),
+        "sfu exp": 1e3 * exps * pairs / (SFU_EXP_PER_SM_CLOCK * per_s),
         "bytes": 1e3 * nbytes / HBM_BYTES_PER_S}
     term = max(terms, key=terms.get)
     return terms[term], term, terms
@@ -468,6 +484,26 @@ def sorted_fwd_check(name, gdense, cnt, tiles_x, tiles_y, height, width,
     return acc_k, chunks_k, max_err, tiles_differ
 
 
+def sorted_fwd_bound(cnt, chunks, footprint: str) -> dict:
+    """K3's least time on this card for one launch's work: the slots the
+    tiles composited (up to their exit, chunks x 512 at most), each read
+    once (64 B), cnt read and the (8, pixels) f32 output and chunk counts
+    written once, against SORTED_FLOPS_PER_EVAL of the footprint per
+    composited (slot, pixel)."""
+    import torch
+
+    from tpu_gaussians_torch.ops.binning import NBS, TPS
+
+    n_tiles = cnt.shape[0]
+    slots = int(torch.minimum(cnt, chunks * NBS).sum())
+    nbytes = slots * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS + n_tiles * 4
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * SORTED_FLOPS_PER_EVAL[footprint] * slots * TPS / (
+        F32_FLOPS_PER_S)
+    return {"slots_composited": slots, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def kernel_case(name, g, width, height, knobs, reps):
     """Kernel vs plain twin on one frame's compositing inputs."""
     import torch
@@ -476,7 +512,7 @@ def kernel_case(name, g, width, height, knobs, reps):
     from tpu_gaussians_torch.core.types import RenderConfig
     from tpu_gaussians_torch.kernels import sorted_fwd
     from tpu_gaussians_torch.ops import sorted as tiled
-    from tpu_gaussians_torch.ops.binning import EXIT_T, NBS, TPS
+    from tpu_gaussians_torch.ops.binning import EXIT_T
     from tpu_gaussians_torch.ops.common import prepare_splats
     from tpu_gaussians_torch.ops.projection import camera_z
 
@@ -495,24 +531,16 @@ def kernel_case(name, g, width, height, knobs, reps):
         p_ms = time_ms(lambda: sorted_fwd.sorted_tiles_plain(
             gdense, cnt, tiles_x, axis=True, exit_t=exit_t), reps)
 
-    # The least the card could take for this run's work: the slots the
-    # tiles composited (up to their exit), each read once (64 B), cnt
-    # read and the (8, pixels) f32 output and chunk counts written once.
+    # The least the card could take for this run's work (the axis
+    # footprint's compositing, as the server renders).
     n_tiles = cnt.shape[0]
-    slots = int(torch.minimum(cnt, chunks_k * NBS).sum())
-    nbytes = slots * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS + n_tiles * 4
-    flops = SORTED_FLOPS_PER_EVAL * slots * TPS
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * flops / F32_FLOPS_PER_S
     case = {
         "case": name, "n": g.capacity, "width": width, "height": height,
         "tiles": n_tiles, "cap": gdense.shape[0] // n_tiles,
-        "exit_t": exit_t, "slots_composited": slots,
-        "slots_listed": int(cnt.sum()),
+        "exit_t": exit_t, "slots_listed": int(cnt.sum()),
         "tiles_exit_differs": tiles_differ, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        **sorted_fwd_bound(cnt, chunks_k, "axis"),
         "stats": {k: int(v) for k, v in stats.items()},
     }
     log("kernel case " + json.dumps(case))
@@ -718,14 +746,16 @@ def staged_sep(g, view, proj, width: int, height: int):
     return lo, cnt, gdata, rows, wp, nb
 
 
-def sep_library_product(lo, cnt, gdata, rows: int, wp: int, nb: int,
-                        acc, reps: int):
-    """K1's product alone through one cuBLAS call: the factors G (n_bands,
+def sep_library_products(lo, cnt, gdata, gband, rows: int, wp: int,
+                         nb: int, acc, reps: int) -> dict:
+    """K1's and K2's products alone through cuBLAS: the factors G (n_bands,
     5R, K) and Ex (n_bands, K, Wp) formed beforehand by the twin's own
-    arithmetic, zero-padded to the longest range K, then one torch.bmm in
-    f32 (TF32 off). A yardstick of the product's time, not of the
-    function's (the factors' exps are outside it); the port never calls
-    it. -> (median ms, largest difference from K1's sums)."""
+    arithmetic, zero-padded to the longest range K; K1's one torch.bmm
+    (G . Ex) and K2's two (gband . Ex^T and gband^T . G), in f32 (TF32 off).
+    Yardsticks of the products' time, not of the functions' (the factors'
+    exps and K2's moments are outside them); the port never calls them. ->
+    {fwd_library_ms, fwd_library_max_abs_diff (from K1's sums),
+    bwd_library_ms}, medians of `reps`."""
     import torch
 
     from tpu_gaussians_torch.kernels import splat_sep as K
@@ -740,11 +770,19 @@ def sep_library_product(lo, cnt, gdata, rows: int, wp: int, nb: int,
         g_all[i, :, :e0 - s0] = g_mat.reshape(K.FEAT * rows, -1)
         ex_all[i, :e0 - s0] = ex.T
         del ex, g_mat
-    ms = time_ms(lambda: torch.bmm(g_all, ex_all), reps)
+    fwd_ms = time_ms(lambda: torch.bmm(g_all, ex_all), reps)
     prod = torch.bmm(g_all, ex_all).reshape(acc.shape)
     err = float((prod - acc).abs().max())
-    del g_all, ex_all, prod
-    return ms, err
+    del prod
+    gb = gband.reshape(n_bands, K.FEAT * rows, wp)
+
+    def bwd_products():
+        return (torch.bmm(gb, ex_all.transpose(1, 2)),
+                torch.bmm(gb.transpose(1, 2), g_all))
+    bwd_ms = time_ms(bwd_products, reps)
+    del g_all, ex_all
+    return {"fwd_library_ms": fwd_ms, "fwd_library_max_abs_diff": err,
+            "bwd_library_ms": bwd_ms}
 
 
 def sep_fwd_bound(lo, cnt, gdata, rows: int, wp: int, nb: int, sms: int,
@@ -787,10 +825,52 @@ def sep_fwd_bound(lo, cnt, gdata, rows: int, wp: int, nb: int, sms: int,
             "fwd_partial_ms": 1e3 * partial_bytes / HBM_BYTES_PER_S}
 
 
+def sep_bwd_bound(lo, cnt, gdata, rows: int, wp: int, nb: int, sms: int,
+                  mhz: float) -> dict:
+    """K2's bound on this card for the (gaussian, band) pairs this run's
+    block ranges evaluate, for a kernel that runs both products on the
+    tensor cores (csrc/splat_sep_bwd.cu does, as the TPU did on its matrix
+    unit): the largest of tensor_core_bound's terms at the SM clock `mhz`.
+    Per pair, the products are SEP_BWD_FLOPS_PER_PIXEL per band pixel
+    (priced x3, the TF32 split); the f32 work beside them
+    SEP_BWD_ELEMENTWISE_FLOPS_PER_ROW a band row and _PER_COLUMN a column;
+    one exp per row and per column; against gdata, lo/cnt and the band
+    planes read once and the (n_pad, 16) rows written once. The operands'
+    splits, gband's re-reads and the slice partials are K2's design, not
+    its function, and stay out of the bound: the partials' bytes (each
+    slice's rows written and read once) and their time at the memory rate
+    are reported beside it. The 20-flop f32 figure beside it too; K2's
+    slices."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import splat_sep as K
+
+    n_bands, n_pad = lo.shape[0], gdata.shape[0]
+    pairs = int(cnt.to(torch.int64).sum()) * nb
+    slices = K.bwd_slices(rows, wp, n_pad)
+    partial_bytes = 2 * slices * gdata.numel() * 4 if slices > 1 else 0
+    nbytes = (2 * gdata.numel() * 4 + 2 * n_bands * 4
+              + n_bands * K.FEAT * rows * wp * 4)
+    product = SEP_BWD_FLOPS_PER_PIXEL * rows * wp
+    elementwise = (SEP_BWD_ELEMENTWISE_FLOPS_PER_ROW * rows
+                   + SEP_BWD_ELEMENTWISE_FLOPS_PER_COLUMN * wp)
+    ms, term, terms = tensor_core_bound(pairs, elementwise, product, nbytes,
+                                        sms, mhz, exps=rows + wp)
+    f32_ms = 1e3 * pairs * product / F32_FLOPS_PER_S
+    return {"bwd_bound_ms": ms,
+            "bwd_bound_by": "bytes" if term == "bytes" else "operations",
+            "bwd_bound_term": term, "bwd_bound_terms_ms": terms,
+            "bwd_bound_ms_f32": max(f32_ms, 1e3 * nbytes / HBM_BYTES_PER_S),
+            "bwd_sm_clock_mhz": mhz, "bwd_slices": slices,
+            "bwd_partial_bytes": partial_bytes,
+            "bwd_partial_ms": 1e3 * partial_bytes / HBM_BYTES_PER_S}
+
+
 def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
     """K1 and K2 against their plain twins on one set of staged inputs:
-    errors, determinism, CUDA-event times and bounds, and K1's product
-    through cuBLAS. Raises if either disagrees or is not deterministic."""
+    errors, determinism, CUDA-event and device times, bounds, and their
+    products through cuBLAS. Raises if either disagrees or is not
+    deterministic."""
     import torch
 
     from tpu_gaussians_torch.kernels import splat_sep as K
@@ -820,6 +900,7 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
               f"{name}: K2 disagrees with its twin in {int(bad.sum())} "
               f"values (max abs err {err_b})")
         check(bool(torch.equal(out, again)), f"{name}: K2 not deterministic")
+        ref_b_max = ref_b.abs().max()
         del acc_again, ref_b, again
         times = {
             "fwd_ms": time_ms(lambda: K.splat_sep_fwd(
@@ -831,25 +912,38 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
             "bwd_plain_ms": time_ms(lambda: K.sep_bwd_plain(
                 lo, cnt, gdata, gband, rows, wp, nb), reps),
         }
-        # K1's kernels alone per call (torch.profiler): the event time
-        # above also holds the wrapper's host work, which at the flagship's
-        # size is longer than the kernels.
+        # Each kernel alone per call (torch.profiler): the event time above
+        # also holds the wrapper's host work, which at the flagship's size
+        # is longer than the kernels. K2's main kernel and its slice sum
+        # apart.
         times["fwd_device_ms"] = profile_calls(
             lambda i: K.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb),
             reps)["device_busy_ms_per_call"]
-        # The SM clock while K1 runs (launches queued for about 0.3 s).
-        for _ in range(max(1, int(300 / max(times["fwd_ms"], 1e-3)))):
-            K.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
-        mhz = sm_clock_mhz()
-        torch.cuda.synchronize()
-        lib_ms, lib_err = sep_library_product(lo, cnt, gdata, rows, wp, nb,
-                                              acc, reps)
+        prof = profile_calls(lambda i: K.splat_sep_bwd(
+            lo, cnt, gdata, gband, rows, wp, nb), reps)
+        split = device_split(prof, "splat_sep_bwd_kernel",
+                             "splat_sep_bwd_sum_kernel")
+        times.update(bwd_device_ms=prof["device_busy_ms_per_call"],
+                     bwd_device_ms_main=split["main"],
+                     bwd_device_ms_slice_sum=split["second"])
+        # The SM clock while each runs (launches queued for about 0.3 s).
+        mhz = {}
+        for kind, fn in (
+                ("fwd", lambda: K.splat_sep_fwd(lo, cnt, gdata, rows, wp,
+                                                nb)),
+                ("bwd", lambda: K.splat_sep_bwd(lo, cnt, gdata, gband, rows,
+                                                wp, nb))):
+            for _ in range(max(1, int(300 / max(times[f"{kind}_ms"],
+                                                1e-3)))):
+                fn()
+            mhz[kind] = sm_clock_mhz()
+            torch.cuda.synchronize()
+        library = sep_library_products(lo, cnt, gdata, gband, rows, wp, nb,
+                                       acc, reps)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # The least the card could take: the (gaussian, band) pairs this
-    # run's block ranges evaluate. K1's on its terms above; K2's at the
-    # f32 multiply-adds each needs per band pixel, against gdata, lo/cnt
-    # and the band planes read or written once and its (n_pad, 16) rows
-    # written once.
+    # run's block ranges evaluate, on the terms of sep_fwd_bound and
+    # sep_bwd_bound.
     pairs = int(cnt.to(torch.int64).sum()) * nb
     # Of those, the pairs whose gaussian has weight (op > 0): the bound
     # above also counts the dead slots of the capacity in each block.
@@ -858,27 +952,22 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
     lo64 = lo.to(torch.int64)
     alive_pairs = int((alive[lo64 + cnt] - alive[lo64]).sum())
     bands = int((cnt > 0).sum())
-    n_bands = lo.shape[0]
-    band_bytes = n_bands * K.FEAT * rows * wp * 4
-    in_bytes = gdata.numel() * 4 + 2 * n_bands * 4
-    bounds = sep_fwd_bound(lo, cnt, gdata, rows, wp, nb, sms, mhz)
-    ops_ms = 1e3 * pairs * rows * wp * SEP_BWD_FLOPS_PER_PIXEL / (
-        F32_FLOPS_PER_S)
-    bytes_ms = 1e3 * (in_bytes + band_bytes + gdata.numel() * 4) / (
-        HBM_BYTES_PER_S)
-    bounds["bwd_bound_ms"] = max(ops_ms, bytes_ms)
-    bounds["bwd_bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    bounds = {**sep_fwd_bound(lo, cnt, gdata, rows, wp, nb, sms,
+                              mhz["fwd"]),
+              **sep_bwd_bound(lo, cnt, gdata, rows, wp, nb, sms,
+                              mhz["bwd"])}
     case = {"case": name, "n_pad": gdata.shape[0], "nb": nb, "rows": rows,
-            "wp": wp, "n_bands": n_bands, "bands_with_work": bands,
+            "wp": wp, "n_bands": lo.shape[0], "bands_with_work": bands,
             "pairs_evaluated": pairs, "alive_pairs": alive_pairs,
             "alive_share": alive_pairs / max(pairs, 1),
             "fwd_max_abs_err": err_f, "fwd_max_abs_ref": float(
                 ref.abs().max()),
-            "bwd_max_abs_err": err_b, **times,
-            "fwd_library_ms": lib_ms, "fwd_library_call": (
+            "bwd_max_abs_err": err_b, "bwd_max_abs_ref": float(
+                ref_b_max), **times, **library,
+            "library_call": (
                 "torch.bmm, cuBLAS f32 (TF32 off), on G and Ex formed "
-                "beforehand: the product's time, not the function's"),
-            "fwd_library_max_abs_diff": lib_err, **bounds}
+                "beforehand (K2: two calls, with gband): the products' "
+                "time, not the functions'"), **bounds}
     log("sep kernel case " + json.dumps(case))
     return case
 
@@ -1012,7 +1101,9 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
     """K4 against its plain twin on one view's compositing inputs (the
     binner's lists, K3's acc and chunks_done, a seeded N(0,1) cotangent):
     error, determinism, CUDA-event times and bound. K3 is held against its
-    twin on the same lists first. Raises on a disagreement."""
+    twin on the same lists first, and timed there (CUDA events, and its
+    kernel alone by torch.profiler) beside its bound on those lists
+    (sorted_fwd_bound). Raises on a disagreement."""
     import torch
 
     from tpu_gaussians_torch.kernels import sorted_bwd, sorted_fwd
@@ -1048,6 +1139,19 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
         blocks = launched_blocks(lambda: sorted_bwd.sorted_bwd(*args),
                                  "sorted_bwd_kernel")
         slots = int(torch.minimum(cnt, chunks * NBS).sum())
+
+        def k3():
+            return sorted_fwd.sorted_tiles(gdense, cnt, tiles_x, axis=axis,
+                                           exit_t=EXIT_T)
+        k3_times = {
+            "sorted_fwd_ms": time_ms(k3, reps),
+            "sorted_fwd_plain_ms": time_ms(
+                lambda: sorted_fwd.sorted_tiles_plain(
+                    gdense, cnt, tiles_x, axis=axis, exit_t=EXIT_T), 5, 1),
+            "sorted_fwd_device_ms": profile_calls(
+                lambda i: k3(), reps)["port_kernels"]["sorted_fwd_kernel"][0]}
+    k3_bound = {f"sorted_fwd_{k}": v for k, v in sorted_fwd_bound(
+        cnt, chunks, footprint).items()}
     # The least the card could take: the (slot, pixel) pairs the tiles
     # composited at K4's operations each, against the composited slots,
     # acc, g8, cnt and chunks_done read once and the rows written once.
@@ -1069,7 +1173,8 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "sorted_fwd_max_abs_err": k3_err,
-            "sorted_fwd_tiles_exit_differs": k3_differ,
+            "sorted_fwd_tiles_exit_differs": k3_differ, **k3_times,
+            **k3_bound,
             "stats": {k: int(v) for k, v in stats.items()}}
     log("sorted bwd case " + json.dumps(case))
     return case
@@ -1664,11 +1769,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"build {name}: {line.strip()}")
-    # K1, K8a, K9a and K9b run their products on the tensor cores: their
-    # SASS holds HMMA.
+    # K1, K2, K8a, K9a and K9b run their products on the tensor cores:
+    # their SASS holds HMMA.
     hmma = {}
-    for name in ("splat_sep_fwd", "binned_fwd", "splat_v1_fwd",
-                 "splat_v1_bwd"):
+    for name in ("splat_sep_fwd", "splat_sep_bwd", "binned_fwd",
+                 "splat_v1_fwd", "splat_v1_bwd"):
         hmma[name] = build.sass_count(build.library_path(name),
                                       f"{name}_kernel", "HMMA")
         log(f"build {name}: {hmma[name]} HMMA instructions in the kernel's "
@@ -2054,7 +2159,10 @@ def main() -> int:
                    launches["sorted_fwd"], cases, cases[0],
                    launches_fit_sorted=fit_s["launches"]["sorted_fwd"],
                    training_max_abs_err=max(
-                       c["sorted_fwd_max_abs_err"] for c in bwd_cases))]
+                       c["sorted_fwd_max_abs_err"] for c in bwd_cases),
+                   training={c["case"]: {k: c[f"sorted_fwd_{k}"] for k in (
+                       "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                       "slots_composited")} for c in bwd_cases})]
     for name, kind_, line in (("splat_sep_fwd", "fwd", 697),
                               ("splat_sep_bwd", "bwd", 742)):
         sep = [{"case": c["case"], "ms": c[f"{kind_}_ms"],
@@ -2062,17 +2170,17 @@ def main() -> int:
                 "bound_ms": c[f"{kind_}_bound_ms"],
                 "bound_by": c[f"{kind_}_bound_by"],
                 "max_abs_err": c[f"{kind_}_max_abs_err"]} for c in sep_cases]
-        extra = {}
+        # library_ms stays null: no single PyTorch call computes K1's or
+        # K2's function; cuBLAS on the products alone is reported beside it.
+        keys = ("bound_term", "bound_terms_ms", "device_ms", "bound_ms_f32",
+                "library_ms", "slices", "partial_bytes", "partial_ms")
+        keys += (("slice_len", "live_slices") if kind_ == "fwd" else
+                 ("device_ms_main", "device_ms_slice_sum"))
+        extra = {k: {c["case"]: c[f"{kind_}_{k}"] for c in sep_cases}
+                 for k in keys}
+        extra["product_library_ms"] = extra.pop("library_ms")
+        extra["hmma_in_sass"] = hmma[name]
         if name == "splat_sep_fwd":
-            # library_ms stays null: no single PyTorch call computes K1's
-            # function; cuBLAS on the product alone is reported beside it.
-            extra = {k: {c["case"]: c[f"fwd_{k}"] for c in sep_cases}
-                     for k in ("bound_term", "bound_terms_ms", "device_ms",
-                               "bound_ms_f32", "library_ms", "slice_len",
-                               "slices", "live_slices", "partial_bytes",
-                               "partial_ms")}
-            extra["product_library_ms"] = extra.pop("library_ms")
-            extra["hmma_in_sass"] = hmma[name]
             extra["launches_axis_binned_preview"] = fit_ab["launches"][name]
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/splat.py:{line}",
                            fit["launches"][name], sep, sep[0], **extra))

@@ -16,7 +16,8 @@ Tolerances:
 - splat_sep_bwd (K2): rtol 2e-4, and atol 2e-5 times the largest
   magnitude of the output column (at least 2e-5): the moments are sums of
   signed terms that cancel, whose f32 rounding is relative to the terms,
-  not to the sum.
+  not to the sum (its two products on the tensor cores, TF32 split three
+  ways); bit-identical across two launches.
 - sorted_bwd (K4), and the sorted render's gradients: rtol 2e-3 and atol
   2e-4 times the largest magnitude of the output column (or parameter),
   the JAX suite's for its fused sorted backward (tests/test_sorted_vjp.py):
@@ -266,6 +267,100 @@ def test_splat_sep_fwd_kernel_runs_on_tensor_cores(cuda):
     build.build_all(["splat_sep_fwd"])
     assert build.sass_count(build.library_path("splat_sep_fwd"),
                             "splat_sep_fwd_kernel", "HMMA") > 0
+
+
+@pytest.mark.cuda
+def test_splat_sep_bwd_kernel_runs_on_tensor_cores(cuda):
+    build.build_all(["splat_sep_bwd"])
+    assert build.sass_count(build.library_path("splat_sep_bwd"),
+                            "splat_sep_bwd_kernel", "HMMA") > 0
+
+
+def sep_bwd_edge_inputs(rows, wp, n_pad, nb, lo, cnt, seed=0):
+    """K2's inputs for n_pad y-sorted gaussians (sigmas 1-20 pixels,
+    centres over the len(lo) bands and 10 pixels around them, one in eight
+    with zero opacity), the block ranges lo/cnt as given, and an N(0,1)
+    cotangent -> (lo, cnt, gdata, gband) as CPU tensors."""
+    rng = np.random.default_rng(seed)
+    height = len(lo) * rows
+    sx, sy = rng.uniform(1.0, 20.0, (2, n_pad))
+    op = rng.uniform(0.1, 0.9, n_pad)
+    op[rng.uniform(size=n_pad) < 0.125] = 0.0
+    feats = np.concatenate([rng.uniform(0, 1, (n_pad, 3)),
+                            np.ones((n_pad, 1)),
+                            rng.uniform(1, 4, (n_pad, 1))], axis=1)
+    gd = np.zeros((n_pad, 16), np.float32)
+    gd[:, 0] = rng.uniform(-10, wp + 10, n_pad)
+    gd[:, 1] = np.sort(rng.uniform(-10, height + 10, n_pad))
+    gd[:, 2], gd[:, 4] = -0.5 / sx ** 2, -0.5 / sy ** 2
+    gd[:, 5] = op
+    gd[:, 6:11] = feats * op[:, None]
+    gband = rng.normal(size=(len(lo), 5, rows, wp)).astype(np.float32)
+    return (torch.tensor(lo, dtype=torch.int32),
+            torch.tensor(cnt, dtype=torch.int32), torch.from_numpy(gd),
+            torch.from_numpy(gband))
+
+
+# K2's edges: (rows, wp, n_pad, nb, lo, cnt, slices by the kernel's rule):
+# 3 strips and an empty band (3 column slices of one strip); the
+# flagship's shape (R 64, Wp 128, 2 bands over 6 blocks, overlapping: 2
+# row halves x 2 column slices); 5 strips in 2 uneven column slices (3 and
+# 2 strips) and an empty band; one slice (no second kernel) with a band
+# whose range ends at n_pad; R 64 over 16 strips (32 slices), overlapping
+# ranges.
+SEP_BWD_EDGES = {
+    "r32_3strips_empty_band": (32, 192, 1024, 128, [0, 2, 5], [3, 0, 3], 3),
+    "r64_flagship_shape": (64, 128, 3072, 512, [0, 2], [4, 4], 4),
+    "r32_uneven_column_slices": (32, 320, 12288, 512, [3, 0], [2, 0], 2),
+    "r32_one_slice": (32, 128, 131072, 256, [10, 511], [1, 1], 1),
+    "r64_16strips": (64, 1024, 512, 128, [0, 1, 2], [2, 2, 2], 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SEP_BWD_EDGES))
+def test_splat_sep_bwd_kernel_edges(cuda, case):
+    """K2 on its strip, slice and band edges against its twin, at the
+    tolerance above, and bit for bit across two launches; one launch
+    counted per call, whatever the slices."""
+    rows, wp, n_pad, nb, lo, cnt, slices = SEP_BWD_EDGES[case]
+    assert splat_sep.bwd_slices(rows, wp, n_pad) == slices
+    args = [t.to(cuda) for t in sep_bwd_edge_inputs(rows, wp, n_pad, nb,
+                                                    lo, cnt)]
+    before = splat_sep.launches["splat_sep_bwd"]
+    out = splat_sep.splat_sep_bwd(*args, rows, wp, nb)
+    again = splat_sep.splat_sep_bwd(*args, rows, wp, nb)
+    torch.cuda.synchronize()
+    assert splat_sep.launches["splat_sep_bwd"] == before + 2
+    assert torch.equal(out, again)          # deterministic: no atomics
+    ref = splat_sep.sep_bwd_plain(*args, rows, wp, nb)
+    assert ref.abs().amax() > 0
+    assert_moments_close(out.cpu(), ref.cpu())
+    untouched = torch.ones(n_pad, dtype=torch.bool)
+    for l, c in zip(lo, cnt):
+        untouched[l * nb:(l + c) * nb] = False
+    assert not out[untouched.to(cuda)].any()   # rows of no band are zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wp,nb", [(96, 128), (128, 32)])
+def test_splat_sep_bwd_refuses_shapes_off_its_grid(cuda, wp, nb):
+    """K2 takes Wp and nb in multiples of 64, its column strip and
+    gaussian chunk (the staging rounds both up to multiples of 128): the
+    wrapper refuses Wp 96 and nb 32 before a launch, and so does the C
+    entry (cudaErrorInvalidValue, its output untouched)."""
+    lo, cnt, gdata, rows, _, _ = sep_case("straddle", cuda)
+    gband = torch.zeros((lo.shape[0], 5, rows, wp), device=cuda)
+    before = dict(splat_sep.launches)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        splat_sep.splat_sep_bwd(lo, cnt, gdata, gband, rows, wp, nb)
+    assert splat_sep.launches == before
+    out = torch.zeros_like(gdata)
+    with pytest.raises(RuntimeError, match="CUDA error 1$"):
+        build.launch("splat_sep_bwd", (lo, cnt, gdata, gband, out, out),
+                     lo.shape[0], rows, wp, nb, gdata.shape[0])
+    torch.cuda.synchronize()
+    assert not out.any()
 
 
 @pytest.mark.cuda

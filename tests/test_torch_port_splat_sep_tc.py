@@ -70,12 +70,15 @@ def k1_emulated(lo, cnt, gdata, rows, wp, nb, length, small=True):
     return out
 
 
-def heavy_band(n=40_064, nb=128, width=128, seed=13):
-    """One band of 32 rows and width columns under n gaussians (sigmas
-    0.8-1.8 pixels, centres over the band and 10 pixels around it): (lo,
-    cnt, gdata, rows, wp, nb); n a multiple of nb."""
+def heavy_band(n=40_064, nb=128, width=128, seed=13, sigma_x=(0.8, 1.8),
+               sigma_y=(0.8, 1.8)):
+    """One band of 32 rows and width columns under n gaussians (sigmas in
+    pixels drawn from the ranges given, centres over the band and 10
+    pixels around it, y-sorted): (lo, cnt, gdata, rows, wp, nb); n a
+    multiple of nb."""
     rng = np.random.default_rng(seed)
-    sx, sy = rng.uniform(0.8, 1.8, (2, n))
+    low, high = np.array([sigma_x, sigma_y]).T[:, :, None]
+    sx, sy = rng.uniform(low, high, (2, n))
     op = rng.uniform(0.2, 0.9, n)
     feats = np.concatenate([rng.uniform(0, 1, (n, 3)), np.ones((n, 1)),
                             rng.uniform(1, 4, (n, 1))], axis=1)
@@ -137,11 +140,13 @@ def test_k1_without_small_products_fails_the_check():
 def test_k1_refuses_shapes_off_its_grid(wp, nb):
     """K1 (wrapper and twin alike, on any device) takes Wp and nb in
     multiples of 64, its column strip and gaussian chunk, which the staging
-    always gives (multiples of 128); K2 still takes multiples of 32."""
+    always gives (multiples of 128); so does K2, whose strips and chunks
+    are 64 wide too."""
     lo, cnt, gdata, rows, _, _ = parity_case(IDS[0])
     for fn in (splat_sep.splat_sep_fwd, splat_sep.sep_fwd_plain):
         with pytest.raises(ValueError, match="multiples of 64"):
             fn(lo, cnt, gdata, rows, wp, nb)
     gband = torch.zeros((lo.shape[0], splat_sep.FEAT, rows, wp))
-    out = splat_sep.splat_sep_bwd(lo, cnt, gdata, gband, rows, wp, nb)
-    assert out.shape == gdata.shape and not out.any()
+    for fn in (splat_sep.splat_sep_bwd, splat_sep.sep_bwd_plain):
+        with pytest.raises(ValueError, match="multiples of 64"):
+            fn(lo, cnt, gdata, gband, rows, wp, nb)

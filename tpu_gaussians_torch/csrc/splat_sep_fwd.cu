@@ -22,7 +22,7 @@
 // Bound. Per evaluated (gaussian, band) pair the function needs the
 // product's 2 x 5 x R x Wp flops, which the TPU runs on its matrix unit; on
 // this card they go to the tensor cores in TF32 split three ways (3 x 10 R
-// Wp flops at 495 TFLOP/s), above the R + Wp exps (16 per SM and clock),
+// Wp flops at 2048 per SM and clock), above the R + Wp exps (16 per SM and clock),
 // the 5R multiplies of G = featsop x Ey (f32 rate), and far above the
 // bytes (gdata read and the planes written once). The
 // product decides it at both the 100k-gaussian 512x512 shape of the
@@ -345,7 +345,9 @@ extern "C" cudaError_t splat_sep_fwd_launch(const int* lo, const int* cnt,
   const int slice = slice_len(n_bands, rows, wp, n_pad);
   const int slices = (n_pad + slice - 1) / slice;
   const int tiles = n_bands * (rows / SUB) * (wp / COLS);
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // Opt in to > 48 KB of shared memory. The attribute belongs to the
+  // current device, so it is set on every launch, not once per process.
+  const cudaError_t attr = cudaFuncSetAttribute(
       splat_sep_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(sizeof(Stage)));
   if (attr != cudaSuccess) return attr;

@@ -6,9 +6,11 @@ the TPU kernel `tpu_gaussians/ops/pallas/splat.py:_fwd_kernel_sep`; its
 product on the tensor cores, each band's gaussian range split into slices
 whose partials a second pass adds in order, `fwd_slices`) and
 `splat_sep_bwd` launches `csrc/splat_sep_bwd.cu` (K2, replacing
-`_bwd_kernel_sep`), for CUDA tensors; for CPU tensors each runs its plain
-twin, the same banded algorithm in torch. Neither falls back from one to
-the other.
+`_bwd_kernel_sep`; its two products on the tensor cores, each band's rows
+and columns split into slices whose rows a second pass adds in order,
+`bwd_slices`), for CUDA tensors; for CPU tensors each runs its plain twin,
+the same banded algorithm in torch. Neither falls back from one to the
+other.
 
 Inputs shared by both:
   lo, cnt (n_bands,) int32: band i (image rows [i*R, (i+1)*R)) evaluates
@@ -41,15 +43,14 @@ from tpu_gaussians_torch.ops.common import FEAT_DIM as FEAT  # r, g, b, 1, z
 GD_ROWS = 16    # floats per gaussian row of gdata
 GD_FEAT0 = 6    # featsop columns start
 ROWS = (32, 64)  # band heights the kernels are built for
-CHUNK = 32      # nb and wp divide by it (K2 stages 32 gaussians at a time)
-FWD_CHUNK = 64  # K1's: its 64-gaussian chunks and 64-column strips (the
-                # staging, ops/splat._sep_dims, gives multiples of 128)
+CHUNK = 64      # nb and wp divide by it: the kernels' 64-gaussian chunks
+                # and 64-column strips (the staging, ops/splat._sep_dims,
+                # gives multiples of 128)
 
 launches = {"splat_sep_fwd": 0, "splat_sep_bwd": 0}   # kernel launches
 
 
-def _check(lo, cnt, gdata, rows: int, wp: int, nb: int,
-           chunk: int = CHUNK) -> None:
+def _check(lo, cnt, gdata, rows: int, wp: int, nb: int) -> None:
     if not (lo.device == cnt.device == gdata.device):
         raise ValueError(f"lo on {lo.device}, cnt on {cnt.device}, gdata on "
                          f"{gdata.device}")
@@ -63,8 +64,8 @@ def _check(lo, cnt, gdata, rows: int, wp: int, nb: int,
                          f"{tuple(lo.shape)} / {tuple(cnt.shape)}")
     if rows not in ROWS:
         raise ValueError(f"band height must be one of {ROWS}, got {rows}")
-    if wp <= 0 or wp % chunk or nb <= 0 or nb % chunk:
-        raise ValueError(f"wp and nb must be positive multiples of {chunk}, "
+    if wp <= 0 or wp % CHUNK or nb <= 0 or nb % CHUNK:
+        raise ValueError(f"wp and nb must be positive multiples of {CHUNK}, "
                          f"got {wp} / {nb}")
     if (gdata.ndim != 2 or gdata.shape[1] != GD_ROWS
             or gdata.shape[0] == 0 or gdata.shape[0] % nb):
@@ -110,7 +111,7 @@ def sep_fwd_plain(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
                   rows: int, wp: int, nb: int) -> torch.Tensor:
     """K1's algorithm in torch: per band, one f32 product of the (5R, m)
     factor G with Ex over the band's gaussian range -> (n_bands, 5, R, wp)."""
-    _check(lo, cnt, gdata, rows, wp, nb, FWD_CHUNK)
+    _check(lo, cnt, gdata, rows, wp, nb)
     out = torch.zeros((lo.shape[0], FEAT, rows, wp), dtype=torch.float32,
                       device=gdata.device)
     for i, s, e in _ranges(lo, cnt, nb):
@@ -164,11 +165,19 @@ def fwd_slices(n_bands: int, rows: int, wp: int, n_pad: int):
     return length, -(-n_pad // length)
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_slices(rows: int, wp: int, n_pad: int) -> int:
+    """The slices (32-row halves of a band times column ranges) into which
+    K2 splits its work for these shapes: the kernel's own rule, read from
+    its library. Host values only: no device-to-host copy."""
+    return build.load("splat_sep_bwd").splat_sep_bwd_slices(rows, wp, n_pad)
+
+
 def splat_sep_fwd(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
                   rows: int, wp: int, nb: int) -> torch.Tensor:
     """K1 -> acc (n_bands, 5, R, wp): the CUDA kernel for CUDA tensors,
     the plain twin for CPU tensors."""
-    _check(lo, cnt, gdata, rows, wp, nb, FWD_CHUNK)
+    _check(lo, cnt, gdata, rows, wp, nb)
     if not build.on_cuda("splat_sep_fwd", gdata):
         return sep_fwd_plain(lo, cnt, gdata, rows, wp, nb)
     shape = (lo.shape[0], FEAT, rows, wp)
@@ -192,6 +201,12 @@ def splat_sep_bwd(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
     if not build.on_cuda("splat_sep_bwd", gdata, gband):
         return sep_bwd_plain(lo, cnt, gdata, gband, rows, wp, nb)
     out = torch.empty_like(gdata)
-    _launch("splat_sep_bwd", (lo, cnt, gdata, gband), out, lo, rows, wp, nb)
+    # The slices' rows, which the kernel's second pass adds in slice order;
+    # with one slice the kernel writes out itself.
+    slices = bwd_slices(rows, wp, gdata.shape[0])
+    part = out if slices == 1 else torch.empty(
+        (slices, *gdata.shape), dtype=torch.float32, device=gdata.device)
+    _launch("splat_sep_bwd", (lo, cnt, gdata, gband, part), out, lo, rows,
+            wp, nb)
     return out
 
