@@ -11,8 +11,8 @@ Phases, each of which fails the run by raising:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc for every kernel source, all started together; nvcc's
               seconds and ptxas' register and shared-memory lines; the count
-              of HMMA (tensor-core) instructions in K1's, K2's, K8a's, K9a's
-              and K9b's SASS (cuobjdump), none of which may be 0
+              of HMMA (tensor-core) instructions in K1's, K2's, K8a's, K8b's,
+              K9a's and K9b's SASS (cuobjdump), none of which may be 0
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -75,13 +75,17 @@ Phases, each of which fails the run by raising:
  11. scale ewa accum  the same 100k EWA scene and views in accum mode
               (n >= 10,240 under accum_binned "auto" -> tile-binned): 10
               train steps timed, a profile; K8a (binned_fwd, twice,
-              bit-identical), then K8b (binned_bwd) on a seeded cotangent,
-              against their twins on view 0's lists, with the binner's
-              stats and the live slots; K8a's device time (torch.profiler)
-              split between its main kernel and its slice sum, and its bound
-              on this card (its product on the tensor cores, the SM clock
-              read while it runs, the deciding term named) beside the
-              22-flop f32 one and the bytes of its slice partials
+              bit-identical), then K8b (binned_bwd, twice, bit-identical)
+              on a seeded cotangent, against their twins on view 0's lists,
+              with the binner's stats and the live slots; K8a's device time
+              (torch.profiler) split between its main kernel and its slice
+              sum, and its bound on this card (its product on the tensor
+              cores, the SM clock read while it runs, the deciding term
+              named) beside the 22-flop f32 one and the bytes of its slice
+              partials; K8b's device time and bound on the same terms (its
+              two products on the tensor cores) beside the 44-flop f32
+              one, its pixel slices, and its ptxas register and spill
+              lines
  12. binned vs dense  12,288 EWA gaussians at 512x512: render with
               accum_binned "on" (K8a) against "off" (K5), every overflow
               stat 0, image and alpha within rtol 1e-4 / atol 1e-5
@@ -211,11 +215,13 @@ V2_FWD_FLOPS_PER_PAIR = 25
 # dy, the Horner exponent (7), g_x (8 multiply-adds), g_e, u and v, the
 # five moment sums (8), g_featop (8 multiply-adds); the exp not counted.
 V2_BWD_FLOPS_PER_PAIR = 52
-# Per (slot, pixel) pair in K8a's pixel loop (csrc/binned_fwd.cu): dy, the
-# exponent (2 multiply-adds), op * exp, 8 multiply-adds; and in K8b's
-# (csrc/binned_bwd.cu): dx, the exponent (2 multiply-adds), op * exp, g_w
-# (8 multiply-adds), g_e, u = g_e dx and the three row sums (5), g_feat (8
-# multiply-adds). The exps are not counted.
+# Per (slot, pixel) pair in K8a's function with its product on the CUDA
+# cores: dy, the exponent (2 multiply-adds), op * exp, 8 multiply-adds; and
+# in K8b's: dx, the exponent (2 multiply-adds), op * exp, g_w (8
+# multiply-adds), g_e, u = g_e dx and the three row sums (5), g_feat (8
+# multiply-adds). The exps are not counted. Both kernels run their products
+# on the tensor cores: their bounds are binned_fwd_bound's and
+# binned_bwd_bound's, these f32 figures printed beside them.
 BINNED_FWD_FLOPS_PER_PAIR = 22
 BINNED_BWD_FLOPS_PER_PAIR = 44
 # K8a's on the tensor-core terms (csrc/binned_fwd.cu runs its 8-wide
@@ -562,11 +568,15 @@ def profile_calls(fn, calls: int) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # Late in a long process the trace can miss the first or last
+        # kernels of a window (as in launched_blocks): wait at both ends.
+        time.sleep(0.2)
         t0 = time.perf_counter()
         for i in range(calls):
             fn(i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+        time.sleep(0.2)
     rows = [{"kernel": e.key[:90],
              "ms_per_call": e.self_device_time_total / 1e3 / calls,
              "calls_per_call": e.count / calls}
@@ -1302,14 +1312,63 @@ def binned_fwd_bound(cnt, cap: int, sms: int, mhz: float) -> dict:
             "fwd_partial_ms": 1e3 * partial_bytes / HBM_BYTES_PER_S}
 
 
+def binned_bwd_bound(cnt, cap: int, sms: int, mhz: float) -> dict:
+    """K8b's bound on this card for the listed (live) slots of each tile
+    times its 2048 pixels, for a kernel that runs its two products on the
+    tensor cores (csrc/binned_bwd.cu does, as the TPU did on its matrix
+    unit): the largest of tensor_core_bound's terms at the SM clock `mhz`,
+    against the listed slots (64 B), cnt and g8 (8, tiles*2048) read once
+    and the (tiles*cap, 16) rows written once. K8b's per-pair function is
+    K9b's, so its terms are K9b's per pair: the products' 32 flops and 11
+    elementwise flops (the row terms paid once per slot and row, op
+    factored out of every sum). The 44-flop f32 figure beside it; K8b's
+    pixel slices, whose partials stay in shared memory (0 bytes beside the
+    bound)."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import binned as KB
+    from tpu_gaussians_torch.ops.binning import TPS
+
+    n_tiles = cnt.shape[0]
+    live = int(torch.clamp(cnt.to(torch.int64), 0, cap).sum())
+    pairs = live * TPS
+    nbytes = (live * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS
+              + n_tiles * cap * 64)
+    ms, term, terms = tensor_core_bound(
+        pairs, V1_BWD_ELEMENTWISE_FLOPS_PER_PAIR,
+        V1_BWD_PRODUCT_FLOPS_PER_PAIR, nbytes, sms, mhz)
+    return {"bwd_bound_ms": ms,
+            "bwd_bound_by": "bytes" if term == "bytes" else "operations",
+            "bwd_bound_term": term, "bwd_bound_terms_ms": terms,
+            "bwd_bound_ms_44flop": max(
+                1e3 * BINNED_BWD_FLOPS_PER_PAIR * pairs / F32_FLOPS_PER_S,
+                1e3 * nbytes / HBM_BYTES_PER_S),
+            "bwd_sm_clock_mhz": mhz,
+            "bwd_pixel_slices": KB.bwd_pixel_slices(n_tiles, cap),
+            "bwd_partial_bytes": 0, "bwd_partial_ms": 0.0}
+
+
+def ptxas_lines(name: str) -> list:
+    """ptxas' register and spill lines of kernel `name`'s build in this
+    process (kernels/build.logs)."""
+    from tpu_gaussians_torch.kernels import build
+
+    return [line.strip() for line in build.logs.get(name, "").splitlines()
+            if "registers" in line or "spill" in line]
+
+
 def device_split(prof: dict, main: str, second: str) -> dict:
     """A two-kernel wrapper's device ms per call from profile_calls' rows:
     the kernel whose name holds `main`, and the one whose name holds
-    `second`."""
+    `second`; and the main kernel's launches per call that the trace
+    holds (1 for a wrapper that launches it once, unless the profiler lost
+    events)."""
     return {"main": sum(r["ms_per_call"] for r in prof["top"]
                         if main in r["kernel"]),
             "second": sum(r["ms_per_call"] for r in prof["top"]
-                          if second in r["kernel"])}
+                          if second in r["kernel"]),
+            "main_launches": sum(r["calls_per_call"] for r in prof["top"]
+                                 if main in r["kernel"])}
 
 
 def binned_case(name: str, g, view, proj, width: int, height: int,
@@ -1320,8 +1379,10 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
     ops/binned.accum_lists: errors, both directions' determinism, CUDA-event
     times, bounds, the binner's stats and the live slots. For K8a also its
     device time split between its main kernel and its slice sum, and its
-    bound on the tensor-core terms (binned_fwd_bound). Raises on a
-    disagreement."""
+    bound on the tensor-core terms (binned_fwd_bound); for K8b its device
+    time (its one kernel apart from any other row) and its bound on the
+    tensor-core terms (binned_bwd_bound), with the SM clock read while each
+    runs. Raises on a disagreement."""
     import torch
 
     from tpu_gaussians_torch.kernels import binned as KB
@@ -1391,6 +1452,22 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
                 fwd(gdense, cnt, tiles_x)
             mhz = sm_clock_mhz()
             torch.cuda.synchronize()
+            # K8b's kernel alone per call (it has no second pass), then the
+            # SM clock while it runs.
+            prof = profile_calls(lambda i: bwd(gdense, cnt, g8, tiles_x),
+                                 reps)
+            split = device_split(prof, "binned_bwd_kernel",
+                                 "slice_sum_kernel")
+            times.update(bwd_device_ms=prof["device_busy_ms_per_call"],
+                         bwd_device_ms_main=split["main"],
+                         bwd_device_ms_second_pass=split["second"],
+                         bwd_device_launches_traced=split["main_launches"],
+                         bwd_device_ms_per_launch=split["main"] / max(
+                             split["main_launches"], 1e-9))
+            for _ in range(max(1, int(300 / max(times["bwd_ms"], 1e-3)))):
+                bwd(gdense, cnt, g8, tiles_x)
+            mhz_b = sm_clock_mhz()
+            torch.cuda.synchronize()
     # The least the card could take: the listed (live) slots of each tile
     # times its 2048 pixels, at the forward's (backward's) operations each,
     # against the listed slots (64 B) and cnt read once and the
@@ -1413,9 +1490,9 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
         bounds[f"{kind}_bound_by"] = ("operations" if ops_ms >= bytes_ms
                                       else "bytes")
     if footprint == "ewa":
-        bounds.update(binned_fwd_bound(
-            cnt, cap, torch.cuda.get_device_properties(0).multi_processor_count,
-            mhz))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        bounds.update(binned_fwd_bound(cnt, cap, sms, mhz))
+        bounds.update(binned_bwd_bound(cnt, cap, sms, mhz_b))
     case = {"case": name, "footprint": footprint, "n": g.capacity,
             "width": width, "height": height,
             "tiles": n_tiles, "cap": cap, "slots_live": live,
@@ -1769,11 +1846,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"build {name}: {line.strip()}")
-    # K1, K2, K8a, K9a and K9b run their products on the tensor cores:
+    # K1, K2, K8a, K8b, K9a and K9b run their products on the tensor cores:
     # their SASS holds HMMA.
     hmma = {}
     for name in ("splat_sep_fwd", "splat_sep_bwd", "binned_fwd",
-                 "splat_v1_fwd", "splat_v1_bwd"):
+                 "binned_bwd", "splat_v1_fwd", "splat_v1_bwd"):
         hmma[name] = build.sass_count(build.library_path(name),
                                       f"{name}_kernel", "HMMA")
         log(f"build {name}: {hmma[name]} HMMA instructions in the kernel's "
@@ -2210,15 +2287,17 @@ def main() -> int:
                "bound_ms": c[f"{kind_}_bound_ms"],
                "bound_by": c[f"{kind_}_bound_by"],
                "max_abs_err": c[f"{kind_}_max_abs_err"]} for c in binned_cases]
-        extra = {}
-        if name == "binned_fwd":
-            extra = {k: {c["case"]: c[f"fwd_{k}"] for c in binned_cases}
-                     for k in ("bound_term", "bound_terms_ms",
-                               "bound_ms_22flop", "device_ms",
-                               "device_ms_main", "device_ms_slice_sum",
-                               "slice_len", "slices", "live_slices",
-                               "partial_bytes", "partial_ms")}
-            extra["hmma_in_sass"] = hmma[name]
+        keys = (("bound_ms_22flop", "device_ms_slice_sum", "slice_len",
+                 "slices", "live_slices") if name == "binned_fwd" else
+                ("bound_ms_44flop", "device_ms_second_pass",
+                 "device_launches_traced", "device_ms_per_launch",
+                 "pixel_slices"))
+        extra = {k: {c["case"]: c[f"{kind_}_{k}"] for c in binned_cases}
+                 for k in ("bound_term", "bound_terms_ms", "device_ms",
+                           "device_ms_main", "sm_clock_mhz", "partial_bytes",
+                           "partial_ms") + keys}
+        extra["hmma_in_sass"] = hmma[name]
+        extra["ptxas"] = ptxas_lines(name)
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/binned.py:{line}",
                            fit_eb["launches"][name], bc, bc[0], **extra))
     for name, kind_, line in (("binned_sep_fwd", "fwd", 258),

@@ -28,8 +28,9 @@ Tolerances:
   positive terms in another order (K8a's product on the tensor cores, TF32
   split three ways); K8a bit-identical across two launches.
 - splat_v2_bwd (K6) and binned_bwd (K8b): as K2, rtol 2e-4 and atol 2e-5
-  times the largest magnitude of the output column; bit-identical across
-  two launches.
+  times the largest magnitude of the output column (K8b's two products on
+  the tensor cores, TF32 split three ways); bit-identical across two
+  launches.
 - EWA accumulation render gradients (K5/K6, K8a/K8b) against the plain
   renderer: rtol 5e-4 / atol 1e-5, as the axis footprint's.
 - binned_sep_fwd (K7a) and splat_v1_fwd (K9a): rtol 1e-5 / atol 1e-5, as
@@ -517,7 +518,15 @@ BINNED_CASES = {
     "chunk_edges": (TILES_X, TILES_Y, CAP, (1, 512, 513, 1024)),
     "cap8192_scene_grid": (4, 32, 8192, _scene_grid_counts()),
     "flagship_shape": (1, 8, 8192, (886, 0, 129, 1100, 8192, 1, 640, 300)),
+    # 16 tiles at cap 8192: K8b in 2 pixel slices (blocks of 64 slots),
+    # counts on either side of its 32-slot warp and 64-slot block edges.
+    "pixel_halves": (2, 8, 8192, (31, 32, 33, 63, 64, 65, 127, 8192, 0, 1,
+                                  4000, 2049, 96, 7777, 160, 300)),
 }
+# K8b's pixel slices at each case's shapes (csrc/binned_bwd.cu).
+BWD_PIXEL_SLICES = {"full_partial_empty_short": 4, "chunk_edges": 4,
+                    "cap8192_scene_grid": 1, "flagship_shape": 4,
+                    "pixel_halves": 2}
 
 
 @pytest.mark.cuda
@@ -526,8 +535,11 @@ def test_binned_kernels_match_plain_twins(cuda, case):
     """K8a and K8b on lists with a tile at cap, one empty, and counts on
     either side of a 512-slot chunk edge; at cap 8192 on the 100k scene's
     128 tiles (K8a's slices of 1024, a count that is not a multiple of
-    it) and on the flagship's 8 tiles (slices of 128). K8a bit-identical
-    across two launches, an empty tile's sums exactly zero."""
+    it) and on the flagship's 8 tiles (slices of 128); K8b with each of its
+    pixel slicings (4, 1, 4, and 2 on 16 tiles, counts either side of its
+    warp and block edges). Both bit-identical across two launches, an
+    empty tile's sums exactly zero, K8b's rows past each processed chunk
+    zero."""
     tiles_x, tiles_y, cap, cnt = BINNED_CASES[case]
     n_tiles = tiles_x * tiles_y
     if cap == CAP:       # synthetic_lists' own grid and opacities
@@ -542,6 +554,7 @@ def test_binned_kernels_match_plain_twins(cuda, case):
         assert (length, slices) == (1024, 8) and cnt[2] % length
     if case == "flagship_shape":
         assert (length, slices) == (128, 64)
+    assert binned.bwd_pixel_slices(n_tiles, cap) == BWD_PIXEL_SLICES[case]
     before = dict(binned.launches)
     acc = binned.binned_fwd(gdense, cnt_t, tiles_x)
     acc_again = binned.binned_fwd(gdense, cnt_t, tiles_x)
@@ -573,6 +586,27 @@ def test_binned_fwd_kernel_runs_on_tensor_cores(cuda):
     build.build_all(["binned_fwd"])
     assert build.sass_count(build.library_path("binned_fwd"),
                             "binned_fwd_kernel", "HMMA") > 0
+
+
+@pytest.mark.cuda
+def test_binned_bwd_kernel_runs_on_tensor_cores(cuda):
+    build.build_all(["binned_bwd"])
+    assert build.sass_count(build.library_path("binned_bwd"),
+                            "binned_bwd_kernel", "HMMA") > 0
+
+
+@pytest.mark.cuda
+def test_binned_bwd_rejects_misaligned_g8(cuda):
+    # K8b stages g8 with 16-byte cp.async: a contiguous view 4 bytes into
+    # its storage is refused before the launch, not left to fault.
+    gdense, cnt = synthetic_lists(False, device=cuda)
+    n = 8 * TILES_X * TILES_Y * 2048
+    buf = torch.zeros(n + 1, device=cuda)
+    shifted = buf[1:].view(8, n // 8)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        binned.binned_bwd(gdense, cnt, shifted, TILES_X)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

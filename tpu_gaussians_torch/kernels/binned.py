@@ -6,7 +6,9 @@ their plain twins.
 kernel `tpu_gaussians/ops/pallas/binned.py:_binned_fwd_kernel`; its product
 on the tensor cores, each tile's slot list split into slices whose
 partials a second pass adds in order, `fwd_slices`) and `binned_bwd`
-launches `csrc/binned_bwd.cu` (K8b, replacing `_binned_bwd_kernel`) for
+launches `csrc/binned_bwd.cu` (K8b, replacing `_binned_bwd_kernel`; its
+two products on the tensor cores, each tile's pixels split among a
+block's warps when the shapes give few blocks, `bwd_pixel_slices`) for
 CUDA tensors; for CPU tensors each runs its plain twin (`binned_fwd_plain`,
 `binned_bwd_plain`), the TPU grid's algorithm in torch: per tile, per
 512-slot chunk below the tile's count. Neither falls back from one to the
@@ -220,6 +222,15 @@ def fwd_slices(n_tiles: int, cap: int):
     return length, -(-cap // length)
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_pixel_slices(n_tiles: int, cap: int) -> int:
+    """The slices (1, 2 or 4) into which K8b splits each tile's pixels for
+    these shapes, among the warps of a block that add their partials in
+    order: the kernel's own rule, read from its library. Host values only:
+    no device-to-host copy."""
+    return build.load("binned_bwd").binned_bwd_pixel_slices(n_tiles, cap)
+
+
 def binned_fwd(gdense: torch.Tensor, cnt: torch.Tensor,
                tiles_x: int) -> torch.Tensor:
     """K8a -> acc (8, n_tiles*2048): the CUDA kernel for CUDA tensors, the
@@ -244,7 +255,7 @@ def binned_bwd(gdense: torch.Tensor, cnt: torch.Tensor, g8: torch.Tensor,
     tensors, the plain twin for CPU tensors."""
     n_tiles, cap = _check(gdense, cnt)
     check_g8(g8, gdense, n_tiles * TPS)
-    if not build.on_cuda("binned_bwd", gdense):
+    if not build.on_cuda("binned_bwd", gdense, g8):   # g8 by 16 B cp.async
         return binned_bwd_plain(gdense, cnt, g8, tiles_x)
     out = torch.empty_like(gdense)
     _launch("binned_bwd", (gdense, cnt, g8), out, tiles_x, n_tiles, cap)

@@ -1,7 +1,7 @@
 """The shared body of the single-kernel probes `tools/ab_k1.py`,
-`tools/ab_k2.py` and `tools/ab_k8a.py`: build this tree's source of one
-kernel beside other sources of it, hold every build against the plain twin
-and against itself, and time the builds in turns.
+`tools/ab_k2.py`, `tools/ab_k8a.py` and `tools/ab_k8b.py`: build this
+tree's source of one kernel beside other sources of it, hold every build
+against the plain twin and against itself, and time the builds in turns.
 
 Not a script: each probe builds its own cases and bound and calls `setup`,
 `load_builds` and `compare`. Needs one NVIDIA GPU and nvcc.
@@ -18,13 +18,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def setup(doc: str):
+def setup(doc: str, ablations: bool = False):
     """(parsed arguments, chip_smoke.py of this checkout imported as a
     module) for a probe whose usage is `doc`: OTHER.cu sources, --rounds,
-    --seed. Fails without a card; sets the port's CUDA defaults."""
+    --seed, and --ablations for a probe that has them. Fails without a
+    card; sets the port's CUDA defaults."""
     ap = argparse.ArgumentParser(description=doc,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("others", nargs="*", type=Path)
+    if ablations:
+        ap.add_argument("--ablations", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
