@@ -11,8 +11,9 @@ Phases, each of which fails the run by raising:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc for every kernel source, all started together; nvcc's
               seconds and ptxas' register and shared-memory lines; the count
-              of HMMA (tensor-core) instructions in K1's, K2's, K8a's, K8b's,
-              K9a's and K9b's SASS (cuobjdump), none of which may be 0
+              of HMMA (tensor-core) instructions in K1's, K2's, K7a's, K8a's,
+              K8b's, K9a's and K9b's SASS (cuobjdump), none of which may be
+              0
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -109,8 +110,17 @@ Phases, each of which fails the run by raising:
               accum_binned "on": 10 train steps timed, a profile; K7a, then
               K7b on a seeded cotangent, against their twins on view 0's
               lists (K7a twice, bit-identical), with the binner's stats and
-              the live slots; view 0 rendered through K7a against K1, with nothing dropped (the
-              tile capacity raised to n if the default drops pairs)
+              the live slots; K7a's device time split between its main
+              kernel and its slice sum, with the launches the trace kept,
+              and its bound on this card (its product on the tensor cores,
+              the SM clock read while it runs, the deciding term named)
+              beside the 16-flop f32 one and the bytes of its slice
+              partials, and its product alone through cuBLAS (torch.bmm,
+              TF32 off, the factors formed beforehand); K7b's device time
+              and its bound on the same terms (two products) beside the
+              32-flop f32 one; view 0 rendered through K7a against K1, with
+              nothing dropped (the tile capacity raised to n if the default
+              drops pairs)
  17. scale ewa exact  1,000,000 EWA gaussians (phase 3's generator at the
               serving path's 1M size, seeded quaternions), 4 views at
               512x512, accum mode under accum_binned "off": above both of
@@ -236,11 +246,23 @@ BINNED_FWD_PRODUCT_FLOPS_PER_PAIR = 16
 # Per (slot, pixel) pair of K7a/K7b, counted from the function's products
 # as K1/K2's are, not from the kernels' loops: acc += G2 . Ex, one
 # multiply-add per feature (G2 = featsop x Ey is per slot and row); the
-# backward's gG2 = gband . Ex and gEx = gband^T . G2, one each. The 144
-# exps and the per-slot terms are not counted. (The kernels' loops do 17
-# and 37: K7a forms Ey * Ex per pixel, K7b regroups around h.)
+# backward's gG2 = gband . Ex and gEx = gband^T . G2, one each. The TPU runs
+# these products on its matrix unit; on this card K7a runs its product on
+# the tensor cores (csrc/binned_sep_fwd.cu), so both bounds are counted on
+# tensor_core_bound's terms as K1's and K2's (binned_sep_fwd_bound,
+# binned_sep_bwd_bound): the products' flops per pair x 3 (the TF32 split),
+# one exp per tile row and per column of each slot (144), and the f32 work
+# beside the products, per slot and row and per slot and column. K7a's: G2
+# = featsop x Ey, 8 multiplies a row. K7b's, as K2's with 8 features: G2
+# (8), g_featop and gEy from gG2 (8 multiply-adds each), ty, u_y, t2 and the
+# Mdy and Myy sums (6) a row; tx, u_x, t1 and the Mdx and Mxx sums (6) a
+# column. The f32 figures of the products at the CUDA-core rate are printed
+# beside (fwd_bound_ms_f32, bwd_bound_ms_f32).
 BINNED_SEP_FWD_FLOPS_PER_PAIR = 2 * 8
 BINNED_SEP_BWD_FLOPS_PER_PAIR = 2 * 2 * 8
+BINNED_SEP_FWD_ELEMENTWISE_FLOPS_PER_ROW = 8
+BINNED_SEP_BWD_ELEMENTWISE_FLOPS_PER_ROW = 8 + 2 * 2 * 8 + 6
+BINNED_SEP_BWD_ELEMENTWISE_FLOPS_PER_COLUMN = 6
 # Per (gaussian, pixel) pair of the active (tile, block) pairs in K9a
 # (csrc/splat_v1_fwd.cu): dx, dy, the Horner exponent (7), op * exp and 8
 # multiply-adds; in K9b's function with every term paid per pair and the
@@ -1348,6 +1370,113 @@ def binned_bwd_bound(cnt, cap: int, sms: int, mhz: float) -> dict:
             "bwd_partial_bytes": 0, "bwd_partial_ms": 0.0}
 
 
+def binned_sep_fwd_bound(cnt, cap: int, sms: int, mhz: float) -> dict:
+    """K7a's bound on this card for the listed (live) slots of each tile,
+    for a kernel that runs its product on the tensor cores
+    (csrc/binned_sep_fwd.cu does, as the TPU did on its matrix unit): the
+    largest of tensor_core_bound's terms at the SM clock `mhz`. Per slot
+    and tile the product is BINNED_SEP_FWD_FLOPS_PER_PAIR per pixel (priced
+    x3, the TF32 split); G2 = featsop x Ey takes 8 multiplies a row at the
+    f32 rate; one exp per row and per column; against the listed slots (64
+    B) and cnt read once and the (8, tiles*2048) sums written once. The
+    operands' splits and the slice partials are K7a's design, not its
+    function, and stay out of the bound: the partials' bytes (each live
+    slice's (8, 2048) plane written and read once) and their time at the
+    memory rate are reported beside it. The 16-flop f32 figure beside it
+    too; K7a's slices."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import binned as KB
+    from tpu_gaussians_torch.ops.binning import TH, TPS, TWC
+
+    n_tiles = cnt.shape[0]
+    live_t = torch.clamp(cnt.to(torch.int64), 0, cap)
+    live = int(live_t.sum())
+    length, slices = KB.fwd_slices(n_tiles, cap, "binned_sep_fwd")
+    live_slices = int(torch.clamp((live_t + length - 1) // length,
+                                  min=1).sum())
+    partial_bytes = 2 * live_slices * 8 * TPS * 4 if slices > 1 else 0
+    nbytes = live * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS
+    ms, term, terms = tensor_core_bound(
+        live, BINNED_SEP_FWD_ELEMENTWISE_FLOPS_PER_ROW * TH,
+        BINNED_SEP_FWD_FLOPS_PER_PAIR * TPS, nbytes, sms, mhz,
+        exps=TH + TWC)
+    return {"fwd_bound_ms": ms,
+            "fwd_bound_by": "bytes" if term == "bytes" else "operations",
+            "fwd_bound_term": term, "fwd_bound_terms_ms": terms,
+            "fwd_bound_ms_f32": max(
+                1e3 * BINNED_SEP_FWD_FLOPS_PER_PAIR * live * TPS
+                / F32_FLOPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S),
+            "fwd_sm_clock_mhz": mhz, "fwd_slice_len": length,
+            "fwd_slices": slices, "fwd_live_slices": live_slices,
+            "fwd_partial_bytes": partial_bytes,
+            "fwd_partial_ms": 1e3 * partial_bytes / HBM_BYTES_PER_S}
+
+
+def binned_sep_bwd_bound(cnt, cap: int, sms: int, mhz: float) -> dict:
+    """K7b's bound on this card for the listed (live) slots of each tile,
+    for a kernel that runs both products on the tensor cores, as the TPU
+    did on its matrix unit (csrc/binned_sep_bwd.cu runs them on the CUDA
+    cores): the largest of tensor_core_bound's terms at the SM clock
+    `mhz`. Per slot and tile the products are BINNED_SEP_BWD_FLOPS_PER_PAIR
+    per pixel (priced x3, the TF32 split); the f32 work beside them
+    BINNED_SEP_BWD_ELEMENTWISE_FLOPS_PER_ROW a tile row and _PER_COLUMN a
+    column; one exp per row and per column; against the listed slots
+    (64 B), cnt and g8 (8, tiles*2048) read once and the (tiles*cap, 16)
+    rows written once. The 32-flop f32 figure beside it."""
+    import torch
+
+    from tpu_gaussians_torch.ops.binning import TH, TPS, TWC
+
+    n_tiles = cnt.shape[0]
+    live = int(torch.clamp(cnt.to(torch.int64), 0, cap).sum())
+    nbytes = (live * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS
+              + n_tiles * cap * 64)
+    ms, term, terms = tensor_core_bound(
+        live, BINNED_SEP_BWD_ELEMENTWISE_FLOPS_PER_ROW * TH
+        + BINNED_SEP_BWD_ELEMENTWISE_FLOPS_PER_COLUMN * TWC,
+        BINNED_SEP_BWD_FLOPS_PER_PAIR * TPS, nbytes, sms, mhz,
+        exps=TH + TWC)
+    return {"bwd_bound_ms": ms,
+            "bwd_bound_by": "bytes" if term == "bytes" else "operations",
+            "bwd_bound_term": term, "bwd_bound_terms_ms": terms,
+            "bwd_bound_ms_f32": max(
+                1e3 * BINNED_SEP_BWD_FLOPS_PER_PAIR * live * TPS
+                / F32_FLOPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S),
+            "bwd_sm_clock_mhz": mhz}
+
+
+def binned_sep_library_product(gdense, cnt, tiles_x: int, acc,
+                               reps: int) -> dict:
+    """K7a's product alone through cuBLAS: the factors G2 (tiles, 8*16, K)
+    and Ex (tiles, K, 128) of every tile's first K slots (K: the longest
+    list, rounded up to 64; dead slots add zeros) formed beforehand by the
+    twin's own arithmetic, then one torch.bmm in f32 (TF32 off). A
+    yardstick of the product's time, not of the function's (the factors'
+    exps are outside it); the port never calls it. -> {fwd_library_ms,
+    fwd_library_max_abs_diff (from K7a's sums)}, the median of `reps`."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import binned as KB
+    from tpu_gaussians_torch.ops.binning import TPS
+
+    n_tiles = cnt.shape[0]
+    cap = gdense.shape[0] // n_tiles
+    k = min(cap, max(64, -(-int(cnt.max()) // 64) * 64))
+    xc, yr = KB._tile_axes(n_tiles, tiles_x, gdense.device)
+    _, ex, _, ey, fo = KB._sep_factors(
+        gdense.reshape(n_tiles, cap, 16)[:, :k], xc, yr)
+    g2 = (fo[..., :, None] * ey[..., None, :]).flatten(2).transpose(
+        1, 2).contiguous()                                   # (T, 128, K)
+    del ey, fo
+    ms = time_ms(lambda: torch.bmm(g2, ex), reps)
+    prod = torch.bmm(g2, ex).reshape(n_tiles, 8, TPS)
+    ref = acc.reshape(8, n_tiles, TPS).permute(1, 0, 2)
+    err = float((prod - ref).abs().max())
+    del g2, ex, prod
+    return {"fwd_library_ms": ms, "fwd_library_max_abs_diff": err}
+
+
 def ptxas_lines(name: str) -> list:
     """ptxas' register and spill lines of kernel `name`'s build in this
     process (kernels/build.logs)."""
@@ -1377,30 +1506,32 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
     axis footprint the separable K7a and K7b), against their plain twins on
     one view's lists, built by the training path's own
     ops/binned.accum_lists: errors, both directions' determinism, CUDA-event
-    times, bounds, the binner's stats and the live slots. For K8a also its
-    device time split between its main kernel and its slice sum, and its
-    bound on the tensor-core terms (binned_fwd_bound); for K8b its device
+    times, the binner's stats and the live slots. For the forward also its
+    device time split between its main kernel and its slice sum, with the
+    launches the trace kept, and its bound on the tensor-core terms
+    (binned_fwd_bound, binned_sep_fwd_bound); for the backward its device
     time (its one kernel apart from any other row) and its bound on the
-    tensor-core terms (binned_bwd_bound), with the SM clock read while each
-    runs. Raises on a disagreement."""
+    tensor-core terms (binned_bwd_bound, binned_sep_bwd_bound), with the SM
+    clock read while each runs. For K7a also its product alone through
+    cuBLAS. Raises on a disagreement."""
     import torch
 
     from tpu_gaussians_torch.kernels import binned as KB
     from tpu_gaussians_torch.ops.binned import accum_lists
-    from tpu_gaussians_torch.ops.binning import NBS, TPS
+    from tpu_gaussians_torch.ops.binning import NBS
     from tpu_gaussians_torch.ops.common import prepare_splats
 
     if footprint == "axis":
-        ids, fwd, fwd_plain, bwd, bwd_plain = (
-            ("K7a", "K7b"), KB.binned_sep_fwd, KB.binned_sep_fwd_plain,
-            KB.binned_sep_bwd, KB.binned_sep_bwd_plain)
-        flops_fb = (BINNED_SEP_FWD_FLOPS_PER_PAIR,
-                    BINNED_SEP_BWD_FLOPS_PER_PAIR)
+        ids, names, fwd, fwd_plain, bwd, bwd_plain = (
+            ("K7a", "K7b"), ("binned_sep_fwd", "binned_sep_bwd"),
+            KB.binned_sep_fwd, KB.binned_sep_fwd_plain, KB.binned_sep_bwd,
+            KB.binned_sep_bwd_plain)
+        bounds_fb = (binned_sep_fwd_bound, binned_sep_bwd_bound)
     else:
-        ids, fwd, fwd_plain, bwd, bwd_plain = (
-            ("K8a", "K8b"), KB.binned_fwd, KB.binned_fwd_plain,
-            KB.binned_bwd, KB.binned_bwd_plain)
-        flops_fb = (BINNED_FWD_FLOPS_PER_PAIR, BINNED_BWD_FLOPS_PER_PAIR)
+        ids, names, fwd, fwd_plain, bwd, bwd_plain = (
+            ("K8a", "K8b"), ("binned_fwd", "binned_bwd"), KB.binned_fwd,
+            KB.binned_fwd_plain, KB.binned_bwd, KB.binned_bwd_plain)
+        bounds_fb = (binned_fwd_bound, binned_bwd_bound)
     with torch.no_grad():
         s = prepare_splats(g, view, proj, width, height, footprint=footprint)
         gdense, cnt, tiles_x, _, stats = accum_lists(s, height, width)
@@ -1438,61 +1569,46 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
             "bwd_plain_ms": time_ms(lambda: bwd_plain(gdense, cnt, g8,
                                                       tiles_x), 5, 1),
         }
-        if footprint == "ewa":
-            # K8a's kernels alone per call (torch.profiler): the event time
-            # above also holds the wrapper's host work. Then the SM clock
-            # while K8a runs (launches queued for about 0.3 s).
-            prof = profile_calls(lambda i: fwd(gdense, cnt, tiles_x), reps)
-            split = device_split(prof, "binned_fwd_kernel",
-                                 "slice_sum_kernel")
-            times.update(fwd_device_ms=prof["device_busy_ms_per_call"],
-                         fwd_device_ms_main=split["main"],
-                         fwd_device_ms_slice_sum=split["second"])
-            for _ in range(max(1, int(300 / max(times["fwd_ms"], 1e-3)))):
-                fwd(gdense, cnt, tiles_x)
-            mhz = sm_clock_mhz()
+        # Each direction's kernels alone per call (torch.profiler): the
+        # event time above also holds the wrapper's host work. The forward's
+        # main kernel and its slice sum apart, the backward's one kernel
+        # apart from any second pass, each with the launches of its main
+        # kernel that the trace kept (the profiler drops some late in the
+        # run). Then the SM clock while each runs (launches queued for
+        # about 0.3 s).
+        mhz = {}
+        for kind, kname, fn in (
+                ("fwd", names[0], lambda: fwd(gdense, cnt, tiles_x)),
+                ("bwd", names[1], lambda: bwd(gdense, cnt, g8, tiles_x))):
+            prof = profile_calls(lambda i: fn(), reps)
+            split = device_split(prof, f"{kname}_kernel", "slice_sum_kernel")
+            second = "slice_sum" if kind == "fwd" else "second_pass"
+            times.update({
+                f"{kind}_device_ms": prof["device_busy_ms_per_call"],
+                f"{kind}_device_ms_main": split["main"],
+                f"{kind}_device_ms_{second}": split["second"],
+                f"{kind}_device_launches_traced": split["main_launches"],
+                f"{kind}_device_ms_per_launch": split["main"] / max(
+                    split["main_launches"], 1e-9)})
+            for _ in range(max(1, int(300 / max(times[f"{kind}_ms"],
+                                                1e-3)))):
+                fn()
+            mhz[kind] = sm_clock_mhz()
             torch.cuda.synchronize()
-            # K8b's kernel alone per call (it has no second pass), then the
-            # SM clock while it runs.
-            prof = profile_calls(lambda i: bwd(gdense, cnt, g8, tiles_x),
-                                 reps)
-            split = device_split(prof, "binned_bwd_kernel",
-                                 "slice_sum_kernel")
-            times.update(bwd_device_ms=prof["device_busy_ms_per_call"],
-                         bwd_device_ms_main=split["main"],
-                         bwd_device_ms_second_pass=split["second"],
-                         bwd_device_launches_traced=split["main_launches"],
-                         bwd_device_ms_per_launch=split["main"] / max(
-                             split["main_launches"], 1e-9))
-            for _ in range(max(1, int(300 / max(times["bwd_ms"], 1e-3)))):
-                bwd(gdense, cnt, g8, tiles_x)
-            mhz_b = sm_clock_mhz()
-            torch.cuda.synchronize()
+        library = (binned_sep_library_product(gdense, cnt, tiles_x, acc, reps)
+                   if footprint == "axis" else {})
     # The least the card could take: the listed (live) slots of each tile
-    # times its 2048 pixels, at the forward's (backward's) operations each,
-    # against the listed slots (64 B) and cnt read once and the
-    # (8, tiles*2048) sums written once (the backward: g8 read once and the
-    # (tiles*cap, 16) rows written once). slots_processed is what the
-    # kernels run: whole 512-slot chunks.
+    # times its 2048 pixels, on the tensor-core terms of the bound
+    # functions above. slots_processed is what the twins run: whole
+    # 512-slot chunks.
     n_tiles = cnt.shape[0]
     cap = gdense.shape[0] // n_tiles
     live = int(cnt.to(torch.int64).sum())
     processed = int(torch.clamp((cnt.to(torch.int64) + NBS - 1) // NBS * NBS,
                                 max=cap).sum())
-    base_bytes = live * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS
-    bounds = {}
-    for kind, flops, nbytes in (
-            ("fwd", flops_fb[0], base_bytes),
-            ("bwd", flops_fb[1], base_bytes + gdense.numel() * 4)):
-        ops_ms = 1e3 * flops * live * TPS / F32_FLOPS_PER_S
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        bounds[f"{kind}_bound_ms"] = max(ops_ms, bytes_ms)
-        bounds[f"{kind}_bound_by"] = ("operations" if ops_ms >= bytes_ms
-                                      else "bytes")
-    if footprint == "ewa":
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        bounds.update(binned_fwd_bound(cnt, cap, sms, mhz))
-        bounds.update(binned_bwd_bound(cnt, cap, sms, mhz_b))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bounds = {**bounds_fb[0](cnt, cap, sms, mhz["fwd"]),
+              **bounds_fb[1](cnt, cap, sms, mhz["bwd"])}
     case = {"case": name, "footprint": footprint, "n": g.capacity,
             "width": width, "height": height,
             "tiles": n_tiles, "cap": cap, "slots_live": live,
@@ -1501,7 +1617,7 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
                 ref.abs().max()), "bwd_max_abs_err": err_b,
             "bwd_max_abs_ref": float(ref_b.abs().max()),
             "stats": {k: int(v) for k, v in stats.items()},
-            **times, **bounds}
+            **times, **library, **bounds}
     log("binned case " + json.dumps(case))
     return case
 
@@ -1846,11 +1962,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"build {name}: {line.strip()}")
-    # K1, K2, K8a, K8b, K9a and K9b run their products on the tensor cores:
-    # their SASS holds HMMA.
+    # K1, K2, K7a, K8a, K8b, K9a and K9b run their products on the tensor
+    # cores: their SASS holds HMMA.
     hmma = {}
-    for name in ("splat_sep_fwd", "splat_sep_bwd", "binned_fwd",
-                 "binned_bwd", "splat_v1_fwd", "splat_v1_bwd"):
+    for name in ("splat_sep_fwd", "splat_sep_bwd", "binned_sep_fwd",
+                 "binned_fwd", "binned_bwd", "splat_v1_fwd", "splat_v1_bwd"):
         hmma[name] = build.sass_count(build.library_path(name),
                                       f"{name}_kernel", "HMMA")
         log(f"build {name}: {hmma[name]} HMMA instructions in the kernel's "
@@ -2308,8 +2424,25 @@ def main() -> int:
                "bound_by": c[f"{kind_}_bound_by"],
                "max_abs_err": c[f"{kind_}_max_abs_err"]}
               for c in sep_binned_cases]
+        keys = ("bound_term", "bound_terms_ms", "bound_ms_f32", "device_ms",
+                "device_ms_main", "device_launches_traced",
+                "device_ms_per_launch", "sm_clock_mhz")
+        if name == "binned_sep_fwd":
+            keys += ("device_ms_slice_sum", "slice_len", "slices",
+                     "live_slices", "partial_bytes", "partial_ms",
+                     "library_ms", "library_max_abs_diff")
+        extra = {k: {c["case"]: c[f"{kind_}_{k}"] for c in sep_binned_cases}
+                 for k in keys}
+        if name == "binned_sep_fwd":
+            # library_ms stays null: no single PyTorch call computes K7a's
+            # function; cuBLAS on its product alone is reported beside it.
+            extra["product_library_ms"] = extra.pop("library_ms")
+            extra["product_library_max_abs_diff"] = extra.pop(
+                "library_max_abs_diff")
+            extra["hmma_in_sass"] = hmma[name]
+            extra["ptxas"] = ptxas_lines(name)
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/binned.py:{line}",
-                           fit_ab["launches"][name], bc, bc[0]))
+                           fit_ab["launches"][name], bc, bc[0], **extra))
     for name, kind_, line in (("splat_v1_fwd", "", 196),
                               ("splat_v1_bwd", "bwd_", 850)):
         vc = [{"case": c["case"], "ms": c[f"{kind_}ms"],

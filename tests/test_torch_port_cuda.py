@@ -34,8 +34,8 @@ Tolerances:
 - EWA accumulation render gradients (K5/K6, K8a/K8b) against the plain
   renderer: rtol 5e-4 / atol 1e-5, as the axis footprint's.
 - binned_sep_fwd (K7a) and splat_v1_fwd (K9a): rtol 1e-5 / atol 1e-5, as
-  K8a and K5 (K9a's product on the tensor cores, TF32 split three ways),
-  K9a bit-identical across two launches; binned_sep_bwd (K7b) and
+  K8a and K5 (their products on the tensor cores, TF32 split three ways),
+  both bit-identical across two launches; binned_sep_bwd (K7b) and
   splat_v1_bwd (K9b): as K2, and bit-identical across two launches; the axis binned render (K7a/K7b) and
   the EWA render on the tile grid (K9a/K9b) and their gradients against
   the plain renderer: rtol 5e-4 / atol 1e-5, as the other accum renders."""
@@ -669,32 +669,84 @@ def test_accum_render_grads_match_plain_renderer(cuda):
                                    rtol=5e-4, atol=1e-5)
 
 
+# (tiles_x, tiles_y, cap, cnt) of K7a/K7b's card cases.
+BINNED_SEP_CASES = {
+    "full_partial_empty_short": (TILES_X, TILES_Y, CAP, (1024, 600, 0, 300)),
+    "chunk_edges": (TILES_X, TILES_Y, CAP, (1, 512, 513, 1024)),
+    "cap8192_scene_grid": (4, 32, 8192, _scene_grid_counts()),
+    "flagship_shape": (1, 8, 3072, (867, 0, 129, 64, 3072, 1, 640, 65)),
+}
+# K7a's slices at each case's shapes (csrc/binned_sep_fwd.cu:slice_len).
+SEP_FWD_SLICES = {"full_partial_empty_short": (128, 8),
+                  "chunk_edges": (128, 8), "cap8192_scene_grid": (1024, 8),
+                  "flagship_shape": (128, 24)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cnt", [(1024, 600, 0, 300), (1, 512, 513, 1024)],
-                         ids=["full_partial_empty_short", "chunk_edges"])
-def test_binned_sep_kernels_match_plain_twins(cuda, cnt):
+@pytest.mark.parametrize("case", list(BINNED_SEP_CASES))
+def test_binned_sep_kernels_match_plain_twins(cuda, case):
     """K7a and K7b on axis lists (conic b = 0) with a tile at cap, one
-    empty, and counts on either side of a 512-slot chunk edge."""
-    gdense, cnt_t = synthetic_lists(True, device=cuda, cnt=cnt)
+    empty, and counts on either side of a 512-slot chunk edge; at cap 8192
+    on the 100k scene's 128 tiles (K7a's slices of 1024, a count that is
+    not a multiple of it) and on the flagship's 8 tiles at cap 3072
+    (slices of 128, counts on either side of K7a's 64-slot chunk). Both
+    bit-identical across two launches, an empty tile's sums exactly zero,
+    K7b's rows past each processed chunk zero."""
+    tiles_x, tiles_y, cap, cnt = BINNED_SEP_CASES[case]
+    n_tiles = tiles_x * tiles_y
+    if cap == CAP:       # synthetic_lists' own grid and opacities
+        gdense, cnt_t = synthetic_lists(True, device=cuda, cnt=cnt)
+    else:
+        gd, cnt_np = slot_lists(tiles_x, tiles_y, cnt, True,
+                                [(0.2, 0.9)] * n_tiles, cap=cap)
+        gdense = torch.from_numpy(gd).to(cuda)
+        cnt_t = torch.from_numpy(cnt_np).to(cuda)
+    assert binned.fwd_slices(n_tiles, cap, "binned_sep_fwd") == \
+        SEP_FWD_SLICES[case]
     before = dict(binned.launches)
-    acc = binned.binned_sep_fwd(gdense, cnt_t, TILES_X)
+    acc = binned.binned_sep_fwd(gdense, cnt_t, tiles_x)
+    acc_again = binned.binned_sep_fwd(gdense, cnt_t, tiles_x)
     g8 = torch.randn(acc.shape, generator=torch.Generator().manual_seed(9)
                      ).to(cuda)
-    out = binned.binned_sep_bwd(gdense, cnt_t, g8, TILES_X)
-    again = binned.binned_sep_bwd(gdense, cnt_t, g8, TILES_X)
+    out = binned.binned_sep_bwd(gdense, cnt_t, g8, tiles_x)
+    again = binned.binned_sep_bwd(gdense, cnt_t, g8, tiles_x)
     torch.cuda.synchronize()
     assert binned.launches == {
-        **before, "binned_sep_fwd": before["binned_sep_fwd"] + 1,
+        **before, "binned_sep_fwd": before["binned_sep_fwd"] + 2,
         "binned_sep_bwd": before["binned_sep_bwd"] + 2}
-    assert torch.equal(out, again)          # deterministic: no atomics
-    ref = binned.binned_sep_fwd_plain(gdense, cnt_t, TILES_X)
+    assert torch.equal(acc, acc_again)      # deterministic: no atomics
+    assert torch.equal(out, again)
+    ref = binned.binned_sep_fwd_plain(gdense, cnt_t, tiles_x)
     np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
-    ref_b = binned.binned_sep_bwd_plain(gdense, cnt_t, g8, TILES_X)
+    ref_b = binned.binned_sep_bwd_plain(gdense, cnt_t, g8, tiles_x)
     assert_moments_close(out.cpu(), ref_b.cpu())
-    rows = out.reshape(4, CAP, 16).cpu()
+    rows = out.reshape(n_tiles, cap, 16).cpu()
+    sums = acc.reshape(8, n_tiles, 2048).cpu()
     for t, c in enumerate(cnt):              # chunks at or past cnt: zero
         assert not rows[t, -(-c // 512) * 512:].any()
+        if c == 0:
+            assert not sums[:, t].any()
+
+
+@pytest.mark.cuda
+def test_binned_sep_fwd_kernel_runs_on_tensor_cores(cuda):
+    build.build_all(["binned_sep_fwd"])
+    assert build.sass_count(build.library_path("binned_sep_fwd"),
+                            "binned_sep_fwd_kernel", "HMMA") > 0
+
+
+@pytest.mark.cuda
+def test_binned_sep_fwd_rejects_misaligned_gdense(cuda):
+    # K7a stages gdense with 16-byte cp.async: a contiguous view 4 bytes
+    # into its storage is refused before the launch, not left to fault.
+    gdense, cnt = synthetic_lists(True, device=cuda)
+    buf = torch.zeros(gdense.numel() + 1, device=cuda)
+    shifted = buf[1:].view(gdense.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        binned.binned_sep_fwd(shifted, cnt, TILES_X)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -32,7 +32,9 @@ chunks are zero. `ops/sorted.moment_postpass` turns the raw rows into
 gradients of the gdense rows.
 
 `binned_sep_fwd` launches `csrc/binned_sep_fwd.cu` (K7a, replacing
-`_binned_fwd_kernel_sep`) and `binned_sep_bwd` launches
+`_binned_fwd_kernel_sep`; its product on the tensor cores, each tile's
+slot list split into slices as K8a's, `fwd_slices`) and `binned_sep_bwd`
+launches
 `csrc/binned_sep_bwd.cu` (K7b, replacing `_binned_bwd_kernel_sep`); their
 twins are `binned_sep_fwd_plain` and `binned_sep_bwd_plain`. They take the
 same gdense and cnt and read rows 0, 1, 2, 4, 5 and 6-13: conic b is 0 by
@@ -214,11 +216,12 @@ def _launch(name: str, args, out: torch.Tensor, tiles_x: int, n_tiles: int,
 
 
 @functools.lru_cache(maxsize=None)
-def fwd_slices(n_tiles: int, cap: int):
-    """(slice length, slices) into which K8a splits each tile's slot list
-    for these shapes: the kernel's own rule, read from its library. Host
-    values only: no device-to-host copy."""
-    length = build.load("binned_fwd").binned_fwd_slice_len(n_tiles, cap)
+def fwd_slices(n_tiles: int, cap: int, name: str = "binned_fwd"):
+    """(slice length, slices) into which forward kernel `name` (K8a, or
+    K7a: "binned_sep_fwd") splits each tile's slot list for these shapes:
+    the kernel's own rule, read from its library. Host values only: no
+    device-to-host copy."""
+    length = getattr(build.load(name), f"{name}_slice_len")(n_tiles, cap)
     return length, -(-cap // length)
 
 
@@ -231,6 +234,21 @@ def bwd_pixel_slices(n_tiles: int, cap: int) -> int:
     return build.load("binned_bwd").binned_bwd_pixel_slices(n_tiles, cap)
 
 
+def _sliced_fwd(name: str, gdense: torch.Tensor, cnt: torch.Tensor,
+                tiles_x: int, n_tiles: int, cap: int) -> torch.Tensor:
+    """Launch forward kernel `name` (K8a or K7a) -> acc (8, n_tiles*2048),
+    with the scratch for its slices' partials, which the kernel's second
+    pass adds in slice order; with one slice the kernel writes acc
+    itself."""
+    out = torch.empty((FEAT_PAD, n_tiles * TPS), dtype=torch.float32,
+                      device=gdense.device)
+    _, slices = fwd_slices(n_tiles, cap, name)
+    part = out if slices == 1 else torch.empty(
+        (slices, *out.shape), dtype=torch.float32, device=gdense.device)
+    _launch(name, (gdense, cnt, part), out, tiles_x, n_tiles, cap)
+    return out
+
+
 def binned_fwd(gdense: torch.Tensor, cnt: torch.Tensor,
                tiles_x: int) -> torch.Tensor:
     """K8a -> acc (8, n_tiles*2048): the CUDA kernel for CUDA tensors, the
@@ -238,15 +256,7 @@ def binned_fwd(gdense: torch.Tensor, cnt: torch.Tensor,
     n_tiles, cap = _check(gdense, cnt)
     if not build.on_cuda("binned_fwd", gdense):
         return binned_fwd_plain(gdense, cnt, tiles_x)
-    out = torch.empty((FEAT_PAD, n_tiles * TPS), dtype=torch.float32,
-                      device=gdense.device)
-    # The slices' partials, which the kernel's second pass adds in slice
-    # order; with one slice the kernel writes out itself.
-    _, slices = fwd_slices(n_tiles, cap)
-    part = out if slices == 1 else torch.empty(
-        (slices, *out.shape), dtype=torch.float32, device=gdense.device)
-    _launch("binned_fwd", (gdense, cnt, part), out, tiles_x, n_tiles, cap)
-    return out
+    return _sliced_fwd("binned_fwd", gdense, cnt, tiles_x, n_tiles, cap)
 
 
 def binned_bwd(gdense: torch.Tensor, cnt: torch.Tensor, g8: torch.Tensor,
@@ -267,12 +277,9 @@ def binned_sep_fwd(gdense: torch.Tensor, cnt: torch.Tensor,
     """K7a -> acc (8, n_tiles*2048): the CUDA kernel for CUDA tensors, the
     plain twin for CPU tensors."""
     n_tiles, cap = _check(gdense, cnt)
-    if not build.on_cuda("binned_sep_fwd", gdense):
+    if not build.on_cuda("binned_sep_fwd", gdense):   # gdense by cp.async
         return binned_sep_fwd_plain(gdense, cnt, tiles_x)
-    out = torch.empty((FEAT_PAD, n_tiles * TPS), dtype=torch.float32,
-                      device=gdense.device)
-    _launch("binned_sep_fwd", (gdense, cnt), out, tiles_x, n_tiles, cap)
-    return out
+    return _sliced_fwd("binned_sep_fwd", gdense, cnt, tiles_x, n_tiles, cap)
 
 
 def binned_sep_bwd(gdense: torch.Tensor, cnt: torch.Tensor, g8: torch.Tensor,

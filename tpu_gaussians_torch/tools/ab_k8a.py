@@ -44,15 +44,17 @@ ROOT = ab_builds.ROOT
 KERNEL = "binned_fwd"
 
 
-def launcher(cs, so: Path):
-    """K8a -> acc (8, n_tiles*2048) through the launcher of library `so`,
-    with the slice scratch if the library takes one."""
+def launcher(cs, so: Path, kernel: str = KERNEL):
+    """K8a (or K7a: kernel "binned_sep_fwd") -> acc (8, n_tiles*2048)
+    through the launcher of library `so`, with the slice scratch if the
+    library takes one."""
     import torch
 
     lib = ctypes.CDLL(str(so))
-    fn = lib.binned_fwd_launch
+    fn = getattr(lib, f"{kernel}_launch")
     fn.restype = ctypes.c_int
-    sliced = hasattr(lib, "binned_fwd_slice_len")
+    slice_len = getattr(lib, f"{kernel}_slice_len", None)
+    sliced = slice_len is not None
 
     def run(gdense, cnt, tiles_x):
         n_tiles = cnt.shape[0]
@@ -60,7 +62,7 @@ def launcher(cs, so: Path):
         out = torch.empty((8, n_tiles * 2048), device="cuda")
         tensors = [gdense, cnt]
         if sliced:
-            length = lib.binned_fwd_slice_len(n_tiles, cap)
+            length = slice_len(n_tiles, cap)
             slices = -(-cap // length)
             tensors.append(out if slices == 1 else torch.empty(
                 (slices, *out.shape), device="cuda"))
@@ -74,9 +76,12 @@ def launcher(cs, so: Path):
     return run
 
 
-def lists_cases(cs, seed: int):
+def lists_cases(cs, seed: int, footprint: str = "ewa"):
     """[(case, (gdense, cnt, tiles_x))] for the flagship EWA binned fit's
-    view 0 at its initial parameters and 100k_512x512_ewa's view 0."""
+    view 0 at its initial parameters and 100k_512x512_ewa's view 0; for
+    footprint "axis", the flagship axis binned fit's (800 gaussians at
+    capacity 3000, no quaternions) and 100k_512x512_axis's (the same scene
+    without its quaternions)."""
     import numpy as np
     import torch
 
@@ -89,9 +94,12 @@ def lists_cases(cs, seed: int):
     from tpu_gaussians_torch.ops.common import prepare_splats
     from tpu_gaussians_torch.utils.config import FitConfig
 
+    axis = footprint == "axis"
+
     def lists(g, view, proj, width, height):
         with torch.no_grad():
-            s = prepare_splats(g, view, proj, width, height, footprint="ewa")
+            s = prepare_splats(g, view, proj, width, height,
+                               footprint=footprint)
             gdense, cnt, tiles_x, _, _ = accum_lists(s, height, width)
         return gdense, cnt, tiles_x
 
@@ -100,18 +108,21 @@ def lists_cases(cs, seed: int):
                                    / "cameras.npz"))
     with contextlib.redirect_stdout(io.StringIO()):
         _, _, _, cams = load_dataset(cfg, device="cuda")
-    raw = init_params(torch.Generator().manual_seed(seed), 800, 16384,
-                      use_sh=True, use_quats=True, device="cuda")
+    raw = init_params(torch.Generator().manual_seed(seed), 800,
+                      3000 if axis else 16384, use_sh=True,
+                      use_quats=not axis, device="cuda")
     side, n = 512, 100_000
     cams_s = cam.orbit_cameras(4, side, side, device="cuda")
     arr = cs.scene_arrays(n, seed + 2)
-    arr["quats"] = np.random.default_rng(seed + 2).normal(
-        size=(n, 4)).astype(np.float32)
+    if not axis:
+        arr["quats"] = np.random.default_rng(seed + 2).normal(
+            size=(n, 4)).astype(np.float32)
     g_s = make_gaussians(**arr, device="cuda")
-    return [("flagship_ewa_binned_128x128_init",
+    kind = "axis" if axis else "ewa"
+    return [(f"flagship_{kind}_binned_128x128_init",
              lists(activate(raw), cams.view[0], cams.proj[0], cfg.width,
                    cfg.height)),
-            ("100k_512x512_ewa_init",
+            (f"100k_512x512_{kind}_init",
              lists(g_s, cams_s.view[0], cams_s.proj[0], side, side))]
 
 
