@@ -11,9 +11,9 @@ Phases, each of which fails the run by raising:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc for every kernel source, all started together; nvcc's
               seconds and ptxas' register and shared-memory lines; the count
-              of HMMA (tensor-core) instructions in K1's, K2's, K7a's, K8a's,
-              K8b's, K9a's and K9b's SASS (cuobjdump), none of which may be
-              0
+              of HMMA (tensor-core) instructions in K1's, K2's, K7a's, K7b's,
+              K8a's, K8b's, K9a's and K9b's SASS (cuobjdump), none of which
+              may be 0
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -118,7 +118,9 @@ Phases, each of which fails the run by raising:
               partials, and its product alone through cuBLAS (torch.bmm,
               TF32 off, the factors formed beforehand); K7b's device time
               and its bound on the same terms (two products) beside the
-              32-flop f32 one; view 0 rendered through K7a against K1, with
+              32-flop f32 one, its column slices, and its two products
+              alone through cuBLAS (two torch.bmm, as K7a's); view 0
+              rendered through K7a against K1, with
               nothing dropped (the tile capacity raised to n if the default
               drops pairs)
  17. scale ewa exact  1,000,000 EWA gaussians (phase 3's generator at the
@@ -153,9 +155,9 @@ output column (at least 1; their moments are sums of signed terms that
 cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest magnitude of its
 output column (the JAX suite's tolerance for the sorted backward: ctg - P_i
 cancels and is divided by 1 - a); K1, K2, K4, K6, K7a, K7b, K8a, K8b, K9a
-and K9b are bit-identical across two launches (K1, K2, K8a, K9a and K9b run
-their products on the tensor cores, in TF32 split three ways, and sum in a
-fixed order). K9a
+and K9b are bit-identical across two launches (K1, K2, K7a, K7b, K8a, K8b,
+K9a and K9b run their products on the tensor cores, in TF32 split three
+ways, and sum in a fixed order). K9a
 against K5 and binned against dense renders: rtol 1e-4 / atol 1e-5;
 gradients through K9 against K5/K6, and the mixed route's against the tile
 grid's: rtol 2e-3 and atol 2e-4 times the largest magnitude. Kernel times
@@ -247,8 +249,9 @@ BINNED_FWD_PRODUCT_FLOPS_PER_PAIR = 16
 # as K1/K2's are, not from the kernels' loops: acc += G2 . Ex, one
 # multiply-add per feature (G2 = featsop x Ey is per slot and row); the
 # backward's gG2 = gband . Ex and gEx = gband^T . G2, one each. The TPU runs
-# these products on its matrix unit; on this card K7a runs its product on
-# the tensor cores (csrc/binned_sep_fwd.cu), so both bounds are counted on
+# these products on its matrix unit; on this card K7a runs its product and
+# K7b its two on the tensor cores (csrc/binned_sep_{fwd,bwd}.cu), so both
+# bounds are counted on
 # tensor_core_bound's terms as K1's and K2's (binned_sep_fwd_bound,
 # binned_sep_bwd_bound): the products' flops per pair x 3 (the TF32 split),
 # one exp per tile row and per column of each slot (144), and the f32 work
@@ -1415,17 +1418,21 @@ def binned_sep_fwd_bound(cnt, cap: int, sms: int, mhz: float) -> dict:
 
 def binned_sep_bwd_bound(cnt, cap: int, sms: int, mhz: float) -> dict:
     """K7b's bound on this card for the listed (live) slots of each tile,
-    for a kernel that runs both products on the tensor cores, as the TPU
-    did on its matrix unit (csrc/binned_sep_bwd.cu runs them on the CUDA
-    cores): the largest of tensor_core_bound's terms at the SM clock
-    `mhz`. Per slot and tile the products are BINNED_SEP_BWD_FLOPS_PER_PAIR
-    per pixel (priced x3, the TF32 split); the f32 work beside them
+    for a kernel that runs both products on the tensor cores
+    (csrc/binned_sep_bwd.cu does, as the TPU did on its matrix unit): the
+    largest of tensor_core_bound's terms at the SM clock `mhz`. Per slot
+    and tile the products are BINNED_SEP_BWD_FLOPS_PER_PAIR per pixel
+    (priced x3, the TF32 split); the f32 work beside them
     BINNED_SEP_BWD_ELEMENTWISE_FLOPS_PER_ROW a tile row and _PER_COLUMN a
     column; one exp per row and per column; against the listed slots
     (64 B), cnt and g8 (8, tiles*2048) read once and the (tiles*cap, 16)
-    rows written once. The 32-flop f32 figure beside it."""
+    rows written once. The operands' splits, the re-reads of g8 (once a
+    block) and the dead slots of the processed chunks are K7b's design or
+    the contract's, not the function's, and stay out of the bound. The
+    32-flop f32 figure beside it; K7b's column slices."""
     import torch
 
+    from tpu_gaussians_torch.kernels import binned as KB
     from tpu_gaussians_torch.ops.binning import TH, TPS, TWC
 
     n_tiles = cnt.shape[0]
@@ -1443,18 +1450,22 @@ def binned_sep_bwd_bound(cnt, cap: int, sms: int, mhz: float) -> dict:
             "bwd_bound_ms_f32": max(
                 1e3 * BINNED_SEP_BWD_FLOPS_PER_PAIR * live * TPS
                 / F32_FLOPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S),
-            "bwd_sm_clock_mhz": mhz}
+            "bwd_sm_clock_mhz": mhz,
+            "bwd_col_slices": KB.bwd_col_slices(n_tiles, cap)}
 
 
-def binned_sep_library_product(gdense, cnt, tiles_x: int, acc,
+def binned_sep_library_product(gdense, cnt, tiles_x: int, acc, g8,
                                reps: int) -> dict:
-    """K7a's product alone through cuBLAS: the factors G2 (tiles, 8*16, K)
-    and Ex (tiles, K, 128) of every tile's first K slots (K: the longest
-    list, rounded up to 64; dead slots add zeros) formed beforehand by the
-    twin's own arithmetic, then one torch.bmm in f32 (TF32 off). A
-    yardstick of the product's time, not of the function's (the factors'
-    exps are outside it); the port never calls it. -> {fwd_library_ms,
-    fwd_library_max_abs_diff (from K7a's sums)}, the median of `reps`."""
+    """K7a's product and K7b's two alone through cuBLAS: the factors G2
+    (tiles, 8*16, K) and Ex (tiles, K, 128) of every tile's first K slots
+    (K: the longest list, rounded up to 64; dead slots add zeros) formed
+    beforehand by the twin's own arithmetic, then in f32 (TF32 off) K7a's
+    one torch.bmm (G2 . Ex) and K7b's two (Ex . gband^T and G2^T . gband,
+    gband the tile's (8*16, 128) cotangent). Yardsticks of the products'
+    time, not of the functions' (the factors' exps and K7b's moments are
+    outside them); the port never calls them. -> {fwd_library_ms,
+    fwd_library_max_abs_diff (from K7a's sums), bwd_library_ms}, medians
+    of `reps`."""
     import torch
 
     from tpu_gaussians_torch.kernels import binned as KB
@@ -1473,8 +1484,17 @@ def binned_sep_library_product(gdense, cnt, tiles_x: int, acc,
     prod = torch.bmm(g2, ex).reshape(n_tiles, 8, TPS)
     ref = acc.reshape(8, n_tiles, TPS).permute(1, 0, 2)
     err = float((prod - ref).abs().max())
-    del g2, ex, prod
-    return {"fwd_library_ms": ms, "fwd_library_max_abs_diff": err}
+    del prod
+    gband = g8.reshape(8, n_tiles, TPS).permute(1, 0, 2).reshape(
+        n_tiles, 8 * TPS // 128, 128).contiguous()         # (T, 128, 128)
+
+    def bwd_products():
+        return (torch.bmm(ex, gband.transpose(1, 2)),
+                torch.bmm(g2.transpose(1, 2), gband))
+    bwd_ms = time_ms(bwd_products, reps)
+    del g2, ex, gband
+    return {"fwd_library_ms": ms, "fwd_library_max_abs_diff": err,
+            "bwd_library_ms": bwd_ms}
 
 
 def ptxas_lines(name: str) -> list:
@@ -1512,8 +1532,8 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
     (binned_fwd_bound, binned_sep_fwd_bound); for the backward its device
     time (its one kernel apart from any other row) and its bound on the
     tensor-core terms (binned_bwd_bound, binned_sep_bwd_bound), with the SM
-    clock read while each runs. For K7a also its product alone through
-    cuBLAS. Raises on a disagreement."""
+    clock read while each runs. For K7a and K7b also their products alone
+    through cuBLAS. Raises on a disagreement."""
     import torch
 
     from tpu_gaussians_torch.kernels import binned as KB
@@ -1595,7 +1615,8 @@ def binned_case(name: str, g, view, proj, width: int, height: int,
                 fn()
             mhz[kind] = sm_clock_mhz()
             torch.cuda.synchronize()
-        library = (binned_sep_library_product(gdense, cnt, tiles_x, acc, reps)
+        library = (binned_sep_library_product(gdense, cnt, tiles_x, acc, g8,
+                                              reps)
                    if footprint == "axis" else {})
     # The least the card could take: the listed (live) slots of each tile
     # times its 2048 pixels, on the tensor-core terms of the bound
@@ -1962,11 +1983,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"build {name}: {line.strip()}")
-    # K1, K2, K7a, K8a, K8b, K9a and K9b run their products on the tensor
-    # cores: their SASS holds HMMA.
+    # K1, K2, K7a, K7b, K8a, K8b, K9a and K9b run their products on the
+    # tensor cores: their SASS holds HMMA.
     hmma = {}
     for name in ("splat_sep_fwd", "splat_sep_bwd", "binned_sep_fwd",
-                 "binned_fwd", "binned_bwd", "splat_v1_fwd", "splat_v1_bwd"):
+                 "binned_sep_bwd", "binned_fwd", "binned_bwd", "splat_v1_fwd",
+                 "splat_v1_bwd"):
         hmma[name] = build.sass_count(build.library_path(name),
                                       f"{name}_kernel", "HMMA")
         log(f"build {name}: {hmma[name]} HMMA instructions in the kernel's "
@@ -2427,20 +2449,20 @@ def main() -> int:
         keys = ("bound_term", "bound_terms_ms", "bound_ms_f32", "device_ms",
                 "device_ms_main", "device_launches_traced",
                 "device_ms_per_launch", "sm_clock_mhz")
-        if name == "binned_sep_fwd":
-            keys += ("device_ms_slice_sum", "slice_len", "slices",
-                     "live_slices", "partial_bytes", "partial_ms",
-                     "library_ms", "library_max_abs_diff")
+        keys += (("device_ms_slice_sum", "slice_len", "slices",
+                  "live_slices", "partial_bytes", "partial_ms", "library_ms",
+                  "library_max_abs_diff") if name == "binned_sep_fwd" else
+                 ("col_slices", "library_ms"))
         extra = {k: {c["case"]: c[f"{kind_}_{k}"] for c in sep_binned_cases}
                  for k in keys}
+        # library_ms stays null: no single PyTorch call computes K7a's or
+        # K7b's function; cuBLAS on their products alone is reported beside.
+        extra["product_library_ms"] = extra.pop("library_ms")
         if name == "binned_sep_fwd":
-            # library_ms stays null: no single PyTorch call computes K7a's
-            # function; cuBLAS on its product alone is reported beside it.
-            extra["product_library_ms"] = extra.pop("library_ms")
             extra["product_library_max_abs_diff"] = extra.pop(
                 "library_max_abs_diff")
-            extra["hmma_in_sass"] = hmma[name]
-            extra["ptxas"] = ptxas_lines(name)
+        extra["hmma_in_sass"] = hmma[name]
+        extra["ptxas"] = ptxas_lines(name)
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/binned.py:{line}",
                            fit_ab["launches"][name], bc, bc[0], **extra))
     for name, kind_, line in (("splat_v1_fwd", "", 196),

@@ -36,7 +36,9 @@ Tolerances:
 - binned_sep_fwd (K7a) and splat_v1_fwd (K9a): rtol 1e-5 / atol 1e-5, as
   K8a and K5 (their products on the tensor cores, TF32 split three ways),
   both bit-identical across two launches; binned_sep_bwd (K7b) and
-  splat_v1_bwd (K9b): as K2, and bit-identical across two launches; the axis binned render (K7a/K7b) and
+  splat_v1_bwd (K9b): as K2 (their two products on the tensor cores, TF32
+  split three ways), and bit-identical across two launches; the axis
+  binned render (K7a/K7b) and
   the EWA render on the tile grid (K9a/K9b) and their gradients against
   the plain renderer: rtol 5e-4 / atol 1e-5, as the other accum renders."""
 
@@ -675,11 +677,22 @@ BINNED_SEP_CASES = {
     "chunk_edges": (TILES_X, TILES_Y, CAP, (1, 512, 513, 1024)),
     "cap8192_scene_grid": (4, 32, 8192, _scene_grid_counts()),
     "flagship_shape": (1, 8, 3072, (867, 0, 129, 64, 3072, 1, 640, 65)),
+    # 32 tiles at cap 8192: K7b in blocks of 128 slots, one column slice;
+    # counts on either side of its 16-slot warp, 128-slot block and 512-slot
+    # (a 100k block's) edges, each chunk's dead slots computed.
+    "block_edges": (4, 8, 8192, (15, 16, 17, 127, 128, 129, 255, 256, 257,
+                                 511, 512, 513, 8192, 0, 1, 4000, 1023,
+                                 1024, 1025, 2047, 2048, 2049, 100, 300, 600,
+                                 5000, 7000, 8191, 64, 65, 3, 7777)),
 }
 # K7a's slices at each case's shapes (csrc/binned_sep_fwd.cu:slice_len).
 SEP_FWD_SLICES = {"full_partial_empty_short": (128, 8),
                   "chunk_edges": (128, 8), "cap8192_scene_grid": (1024, 8),
-                  "flagship_shape": (128, 24)}
+                  "flagship_shape": (128, 24), "block_edges": (256, 32)}
+# K7b's column slices at each case's shapes (csrc/binned_sep_bwd.cu).
+SEP_BWD_COL_SLICES = {"full_partial_empty_short": 2, "chunk_edges": 2,
+                      "cap8192_scene_grid": 1, "flagship_shape": 2,
+                      "block_edges": 1}
 
 
 @pytest.mark.cuda
@@ -689,9 +702,11 @@ def test_binned_sep_kernels_match_plain_twins(cuda, case):
     empty, and counts on either side of a 512-slot chunk edge; at cap 8192
     on the 100k scene's 128 tiles (K7a's slices of 1024, a count that is
     not a multiple of it) and on the flagship's 8 tiles at cap 3072
-    (slices of 128, counts on either side of K7a's 64-slot chunk). Both
-    bit-identical across two launches, an empty tile's sums exactly zero,
-    K7b's rows past each processed chunk zero."""
+    (slices of 128, counts on either side of K7a's 64-slot chunk); K7b
+    with each of its column slicings (2, 2, 1, 2, and 1 on 32 tiles,
+    counts either side of its warp and block edges). Both bit-identical
+    across two launches, an empty tile's sums exactly zero, K7b's rows
+    past each processed chunk zero."""
     tiles_x, tiles_y, cap, cnt = BINNED_SEP_CASES[case]
     n_tiles = tiles_x * tiles_y
     if cap == CAP:       # synthetic_lists' own grid and opacities
@@ -703,6 +718,7 @@ def test_binned_sep_kernels_match_plain_twins(cuda, case):
         cnt_t = torch.from_numpy(cnt_np).to(cuda)
     assert binned.fwd_slices(n_tiles, cap, "binned_sep_fwd") == \
         SEP_FWD_SLICES[case]
+    assert binned.bwd_col_slices(n_tiles, cap) == SEP_BWD_COL_SLICES[case]
     before = dict(binned.launches)
     acc = binned.binned_sep_fwd(gdense, cnt_t, tiles_x)
     acc_again = binned.binned_sep_fwd(gdense, cnt_t, tiles_x)
@@ -734,6 +750,29 @@ def test_binned_sep_fwd_kernel_runs_on_tensor_cores(cuda):
     build.build_all(["binned_sep_fwd"])
     assert build.sass_count(build.library_path("binned_sep_fwd"),
                             "binned_sep_fwd_kernel", "HMMA") > 0
+
+
+@pytest.mark.cuda
+def test_binned_sep_bwd_kernel_runs_on_tensor_cores(cuda):
+    build.build_all(["binned_sep_bwd"])
+    assert build.sass_count(build.library_path("binned_sep_bwd"),
+                            "binned_sep_bwd_kernel", "HMMA") > 0
+
+
+@pytest.mark.cuda
+def test_binned_sep_bwd_rejects_misaligned_g8(cuda):
+    # K7b stages g8 with 16-byte loads: a contiguous view 4 bytes into its
+    # storage is refused before the launch, not left to fault.
+    gdense, cnt = synthetic_lists(True, device=cuda)
+    n = 8 * TILES_X * TILES_Y * 2048
+    buf = torch.zeros(n + 1, device=cuda)
+    shifted = buf[1:].view(8, n // 8)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = dict(binned.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        binned.binned_sep_bwd(gdense, cnt, shifted, TILES_X)
+    torch.cuda.synchronize()
+    assert binned.launches == before
 
 
 @pytest.mark.cuda

@@ -34,9 +34,11 @@ gradients of the gdense rows.
 `binned_sep_fwd` launches `csrc/binned_sep_fwd.cu` (K7a, replacing
 `_binned_fwd_kernel_sep`; its product on the tensor cores, each tile's
 slot list split into slices as K8a's, `fwd_slices`) and `binned_sep_bwd`
-launches
-`csrc/binned_sep_bwd.cu` (K7b, replacing `_binned_bwd_kernel_sep`); their
-twins are `binned_sep_fwd_plain` and `binned_sep_bwd_plain`. They take the
+launches `csrc/binned_sep_bwd.cu` (K7b, replacing
+`_binned_bwd_kernel_sep`; its two products on the tensor cores, each
+tile's columns split among a block's warps when the shapes give few
+blocks, `bwd_col_slices`); their twins are `binned_sep_fwd_plain` and
+`binned_sep_bwd_plain`. They take the
 same gdense and cnt and read rows 0, 1, 2, 4, 5 and 6-13: conic b is 0 by
 the axis contract, so w = op Ex(col) Ey(row) with, at column x and row y
 of a tile, tx = x - px, ty = y - py,
@@ -234,6 +236,16 @@ def bwd_pixel_slices(n_tiles: int, cap: int) -> int:
     return build.load("binned_bwd").binned_bwd_pixel_slices(n_tiles, cap)
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_col_slices(n_tiles: int, cap: int) -> int:
+    """The column slices (1 or 2) into which K7b splits each tile for
+    these shapes, among the warps of a block that add their partials in
+    order: the kernel's own rule, read from its library. Host values only:
+    no device-to-host copy."""
+    return build.load("binned_sep_bwd").binned_sep_bwd_col_slices(n_tiles,
+                                                                   cap)
+
+
 def _sliced_fwd(name: str, gdense: torch.Tensor, cnt: torch.Tensor,
                 tiles_x: int, n_tiles: int, cap: int) -> torch.Tensor:
     """Launch forward kernel `name` (K8a or K7a) -> acc (8, n_tiles*2048),
@@ -289,7 +301,7 @@ def binned_sep_bwd(gdense: torch.Tensor, cnt: torch.Tensor, g8: torch.Tensor,
     for CPU tensors."""
     n_tiles, cap = _check(gdense, cnt)
     check_g8(g8, gdense, n_tiles * TPS)
-    if not build.on_cuda("binned_sep_bwd", gdense):
+    if not build.on_cuda("binned_sep_bwd", gdense, g8):   # g8 by float4
         return binned_sep_bwd_plain(gdense, cnt, g8, tiles_x)
     out = torch.empty_like(gdense)
     _launch("binned_sep_bwd", (gdense, cnt, g8), out, tiles_x, n_tiles, cap)

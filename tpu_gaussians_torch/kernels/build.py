@@ -152,6 +152,21 @@ def sass_count(lib: Path, kernel: str, opcode: str) -> int:
     contains `kernel` in library `lib` holds, by cuobjdump (the CUDA
     toolkit's, or the copy under Triton's package). Raises if neither is
     found or `lib` holds no single such function."""
+    return len(re.findall(rf"\b{opcode}\b", _sass_function(lib, kernel)))
+
+
+def sass_opcodes(lib: Path, kernel: str) -> Dict[str, int]:
+    """{opcode: count} of the SASS of the function whose name contains
+    `kernel` in library `lib` (the opcode without its modifiers: HMMA,
+    LDS, FADD, ...), most frequent first; raises as sass_count."""
+    ops: Dict[str, int] = {}
+    line = r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)"
+    for m in re.finditer(line, _sass_function(lib, kernel)):
+        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
+def _sass_function(lib: Path, kernel: str) -> str:
     tools = [Path("/usr/local/cuda/bin/cuobjdump")]
     try:
         import triton
@@ -168,4 +183,4 @@ def sass_count(lib: Path, kernel: str, opcode: str) -> int:
              if kernel in f.split("\n", 1)[0]]
     if len(funcs) != 1:
         raise RuntimeError(f"{len(funcs)} functions named {kernel} in {lib}")
-    return len(re.findall(rf"\b{opcode}\b", funcs[0]))
+    return funcs[0]

@@ -1,5 +1,6 @@
 """The shared body of the single-kernel probes `tools/ab_k1.py`,
-`tools/ab_k2.py`, `tools/ab_k8a.py` and `tools/ab_k8b.py`: build this
+`tools/ab_k2.py`, `tools/ab_k7a.py`, `tools/ab_k7b.py`, `tools/ab_k8a.py`
+and `tools/ab_k8b.py`: build this
 tree's source of one kernel beside other sources of it, hold every build
 against the plain twin and against itself, and time the builds in turns.
 
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import json
 import statistics
 import sys
 from pathlib import Path
@@ -52,7 +54,8 @@ def load_builds(kernel: str, others, launcher):
     by `kernels/build.build_others`; run = launcher(library path). Prints
     ptxas' register and spill lines and each build's HMMA count (None for
     another source whose kernel is not one function, e.g. a template
-    built for two band heights)."""
+    built for two band heights) and SASS opcode counts
+    (`kernels/build.sass_opcodes`)."""
     from tpu_gaussians_torch.kernels import build
 
     runs, hmma = {}, {}
@@ -68,6 +71,10 @@ def load_builds(kernel: str, others, launcher):
             hmma[tag] = None
         print(f"build {tag}: {hmma[tag]} HMMA instructions in the kernel's "
               f"SASS", flush=True)
+        if hmma[tag] is not None:
+            print(f"build {tag}: SASS opcodes "
+                  + json.dumps(build.sass_opcodes(so, f"{kernel}_kernel")),
+                  flush=True)
         runs[tag] = launcher(so)
     return runs, hmma
 

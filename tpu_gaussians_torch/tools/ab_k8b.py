@@ -80,12 +80,13 @@ def ablation_sources(build):
     return paths
 
 
-def launcher(cs, so: Path):
-    """K8b -> raw rows (n_tiles*cap, 16) through the launcher of library
-    `so` (this tree's and the parent's take the same arguments)."""
+def launcher(cs, so: Path, kernel: str = KERNEL):
+    """K8b (or K7b: kernel "binned_sep_bwd") -> raw rows (n_tiles*cap, 16)
+    through the launcher of library `so` (this tree's and the parent's take
+    the same arguments)."""
     import torch
 
-    fn = ctypes.CDLL(str(so)).binned_bwd_launch
+    fn = getattr(ctypes.CDLL(str(so)), f"{kernel}_launch")
     fn.restype = ctypes.c_int
 
     def run(gdense, cnt, g8, tiles_x):
