@@ -28,9 +28,15 @@ Phases, each of which fails the run by raising:
   6. kernel   the compositing kernel (K3) vs its plain twin on the serving
               path's inputs: image and alpha within rtol 1e-4 / atol 1e-5,
               and within exit_t on tiles whose whole-tile early-exit
-              decision differs; and a small scene through render(impl=
-              "tiled") against the plain renderer in both modes and both
-              footprints (EWA accum through K5)
+              decision differs; K3 twice, bit-identical, and the blocks
+              its launch takes (a cluster of 8 a tile: the grid of its
+              kernel event in a torch.profiler trace); its device time
+              (torch.profiler) beside its all-pairs bound and its live
+              bound (the composited pairs with a_raw >= 1e-5, the pairs
+              its culling evaluates, the SM clock read while it runs);
+              and a small scene through render(impl="tiled") against the
+              plain renderer in both modes and both footprints (EWA accum
+              through K5)
   7. fit      cli.fit.main on cuda with the flagship recipe (example scene,
               150 iterations, --use_sh, 800 gaussians, 128x128, capacity
               3000): loss.txt has 150 lines and its last loss is under half
@@ -61,13 +67,14 @@ Phases, each of which fails the run by raising:
               steps;
               K5 and K6 against their twins on the fitted model (the
               preview's inputs), and K3 and K4 against theirs on its EWA
-              tile lists, K3's time (events and torch.profiler) and bound
-              on those lists beside K4's
+              tile lists, K3's checks, time (events and torch.profiler)
+              and bounds on those lists as in 6, beside K4's
  10. scale sorted  100,000 alive EWA gaussians (phase 8's scene, seeded
               quaternions), 4 views at 512x512, sorted with the measured
               pair budget: 10 train steps timed, a profile; K3, then K4 on
               K3's outputs, against their twins on the binner's lists, for
-              both footprints (K3 timed and bounded there too), with the
+              both footprints (K3 checked, timed and bounded there as in
+              6), with the
               blocks K4's launch takes (more
               than tiles; the grid of its kernel event in a torch.profiler
               trace); sorted-render gradients against the plain renderer
@@ -154,10 +161,11 @@ K8b and K9b to rtol 2e-4 and atol 2e-5 times the largest magnitude of their
 output column (at least 1; their moments are sums of signed terms that
 cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest magnitude of its
 output column (the JAX suite's tolerance for the sorted backward: ctg - P_i
-cancels and is divided by 1 - a); K1, K2, K4, K6, K7a, K7b, K8a, K8b, K9a
-and K9b are bit-identical across two launches (K1, K2, K7a, K7b, K8a, K8b,
-K9a and K9b run their products on the tensor cores, in TF32 split three
-ways, and sum in a fixed order). K9a
+cancels and is divided by 1 - a); K1, K2, K3, K4, K6, K7a, K7b, K8a, K8b,
+K9a and K9b are bit-identical across two launches (K1, K2, K7a, K7b, K8a,
+K8b, K9a and K9b run their products on the tensor cores, in TF32 split
+three ways, and sum in a fixed order; K3 composites each pixel in slot
+order and culls only pairs whose alpha is under the cutoff). K9a
 against K5 and binned against dense renders: rtol 1e-4 / atol 1e-5;
 gradients through K9 against K5/K6, and the mixed route's against the tile
 grid's: rtol 2e-3 and atol 2e-4 times the largest magnitude. Kernel times
@@ -312,6 +320,21 @@ EWA_ACCUM_FIT_ARGS = ["--footprint", "ewa"]
 EWA_BINNED_FIT_ARGS = ["--footprint", "ewa", "--max_gaussians", "16384",
                        "--render_mode", "accum"]
 AXIS_BINNED_FIT_ARGS = ["--accum_binned", "on"]
+
+# A torch.profiler window late in a long run can keep no launch at all of
+# a kernel that ran in it (one on an H100 kept 0 kernel events of ten K4
+# calls, where the window before it and the run before it kept them): the
+# helpers that read a kernel's launches from a trace take such a window
+# again, at most this many times in all, after PROFILE_RETRY_S seconds,
+# and say so in the log.
+PROFILE_TRIES = 3
+PROFILE_RETRY_S = 1.0
+
+# K3's keys beside its all-pairs bound in the kernels line.
+K3_LIVE_KEYS = ("blocks", "device_launches_traced", "composited_pairs",
+                "live_pairs", "evaluated_pairs", "live_bound_ms",
+                "live_bound_by", "live_bound_terms_ms", "sm_clock_mhz")
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -470,32 +493,24 @@ def serve_phase(svc, width: int, height: int, pose) -> dict:
     return out
 
 
-def sorted_fwd_check(name, gdense, cnt, tiles_x, tiles_y, height, width,
-                     axis, exit_t):
-    """K3 against its plain twin on one view's tile lists: image and alpha
-    within rtol 1e-4 / atol 1e-5, and within exit_t on tiles whose
-    whole-tile early-exit decision differs. Raises on a disagreement;
-    returns K3's (acc, chunks_done), the largest error and the count of
-    tiles with another exit."""
+def sorted_fwd_agreement(acc_k, chunks_k, acc_p, chunks_p, tiles_y, tiles_x,
+                         height, width, exit_t):
+    """(agrees, largest error, tiles with another exit) of a compositing
+    output (acc_k, chunks_k) against the twin's: image and alpha within
+    rtol 1e-4 / atol 1e-5, and within exit_t on tiles whose whole-tile
+    early-exit decision differs; a non-finite image or alpha disagrees."""
     import torch
 
-    from tpu_gaussians_torch.kernels import sorted_fwd
     from tpu_gaussians_torch.ops import sorted as tiled
     from tpu_gaussians_torch.ops.binning import TPS
 
     with torch.no_grad():
-        acc_k, chunks_k = sorted_fwd.sorted_tiles(gdense, cnt, tiles_x,
-                                                  axis=axis, exit_t=exit_t)
-        acc_p, chunks_p = sorted_fwd.sorted_tiles_plain(
-            gdense, cnt, tiles_x, axis=axis, exit_t=exit_t)
-        torch.cuda.synchronize()
-        bg = torch.zeros(3, device="cuda")
+        bg = torch.zeros(3, device=acc_k.device)
         img_k, al_k, _ = tiled.resolve_sorted(acc_k, bg, tiles_y, tiles_x,
                                               height, width)
         img_p, al_p, _ = tiled.resolve_sorted(acc_p, bg, tiles_y, tiles_x,
                                               height, width)
-        for t in (img_k, al_k):
-            check(bool(torch.isfinite(t).all()), f"{name}: non-finite output")
+        finite = all(bool(torch.isfinite(t).all()) for t in (img_k, al_k))
         same = (chunks_k == chunks_p).to(torch.float32).repeat_interleave(TPS)
         same_px = tiled.crop_tiled_acc(same.expand(8, -1), tiles_y, tiles_x,
                                        height, width)[..., 0] > 0.5
@@ -509,10 +524,44 @@ def sorted_fwd_check(name, gdense, cnt, tiles_x, tiles_y, height, width,
                         | same_px).all())
         max_err = max(float(err_img.max()), float(err_al.max()))
         tiles_differ = int((chunks_k != chunks_p).sum())
-        check(ok_same and ok_diff,
-              f"{name}: K3 and its plain twin disagree (max abs err "
+    return finite and ok_same and ok_diff, max_err, tiles_differ
+
+
+def sorted_fwd_check(name, gdense, cnt, tiles_x, tiles_y, height, width,
+                     axis, exit_t):
+    """K3 against its plain twin on one view's tile lists
+    (sorted_fwd_agreement), then against itself: a second launch bit for
+    bit, and the cluster of sorted_fwd.CLUSTER blocks a tile that its
+    launch takes (the grid of its kernel event in a torch.profiler trace).
+    Raises on a disagreement; returns K3's (acc, chunks_done), the largest
+    error, the count of tiles with another exit and the launched blocks."""
+    import torch
+
+    from tpu_gaussians_torch.kernels import sorted_fwd
+
+    def k3():
+        return sorted_fwd.sorted_tiles(gdense, cnt, tiles_x, axis=axis,
+                                       exit_t=exit_t)
+
+    with torch.no_grad():
+        acc_k, chunks_k = k3()
+        acc_p, chunks_p = sorted_fwd.sorted_tiles_plain(
+            gdense, cnt, tiles_x, axis=axis, exit_t=exit_t)
+        again, chunks_again = k3()
+        torch.cuda.synchronize()
+        ok, max_err, tiles_differ = sorted_fwd_agreement(
+            acc_k, chunks_k, acc_p, chunks_p, tiles_y, tiles_x, height,
+            width, exit_t)
+        check(ok, f"{name}: K3 and its plain twin disagree (max abs err "
               f"{max_err}, {tiles_differ} tiles with another exit)")
-    return acc_k, chunks_k, max_err, tiles_differ
+        check(torch.equal(acc_k, again) and torch.equal(chunks_k,
+                                                        chunks_again),
+              f"{name}: K3 not bit-identical across two launches")
+        blocks = launched_blocks(k3, "sorted_fwd_kernel")
+        check(blocks == sorted_fwd.CLUSTER * cnt.shape[0],
+              f"{name}: K3 launched {blocks} blocks for {cnt.shape[0]} "
+              f"tiles, not {sorted_fwd.CLUSTER} a tile")
+    return acc_k, chunks_k, max_err, tiles_differ, blocks
 
 
 def sorted_fwd_bound(cnt, chunks, footprint: str) -> dict:
@@ -521,13 +570,9 @@ def sorted_fwd_bound(cnt, chunks, footprint: str) -> dict:
     once (64 B), cnt read and the (8, pixels) f32 output and chunk counts
     written once, against SORTED_FLOPS_PER_EVAL of the footprint per
     composited (slot, pixel)."""
-    import torch
+    from tpu_gaussians_torch.ops.binning import TPS
 
-    from tpu_gaussians_torch.ops.binning import NBS, TPS
-
-    n_tiles = cnt.shape[0]
-    slots = int(torch.minimum(cnt, chunks * NBS).sum())
-    nbytes = slots * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS + n_tiles * 4
+    slots, nbytes = sorted_fwd_bytes(cnt, chunks)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * SORTED_FLOPS_PER_EVAL[footprint] * slots * TPS / (
         F32_FLOPS_PER_S)
@@ -535,8 +580,79 @@ def sorted_fwd_bound(cnt, chunks, footprint: str) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def sorted_fwd_bytes(cnt, chunks):
+    """(composited slots, bytes) of one K3 launch: each composited slot read
+    once (64 B), cnt read and the (8, pixels) f32 output and chunk counts
+    written once."""
+    import torch
+
+    from tpu_gaussians_torch.ops.binning import NBS, TPS
+
+    n_tiles = cnt.shape[0]
+    slots = int(torch.minimum(cnt, chunks * NBS).sum())
+    return slots, (slots * 64 + n_tiles * 4 + 8 * 4 * n_tiles * TPS
+                   + n_tiles * 4)
+
+
+def sorted_fwd_live_bound(gdense, cnt, chunks, tiles_x: int, footprint: str,
+                          sms: int, mhz: float) -> dict:
+    """K3's least time on this card for the work its function needs: the
+    live pairs (composited (slot, pixel) pairs with a_raw >= 1e-5, counted
+    by the twin's slot_alpha) at SORTED_FLOPS_PER_EVAL each at the f32 rate
+    and one exp each at the SFU rate (16 per SM and clock at the SM clock
+    `mhz`), against sorted_fwd_bound's bytes; beside it the pairs the
+    kernel's culling rule evaluates (kernels/sorted_fwd.cull_counts)."""
+    from tpu_gaussians_torch.kernels import sorted_fwd
+
+    counts = sorted_fwd.cull_counts(gdense, cnt, chunks, tiles_x,
+                                    footprint == "axis")
+    live = counts["live_pairs"]
+    terms = {"bytes": 1e3 * sorted_fwd_bytes(cnt, chunks)[1]
+             / HBM_BYTES_PER_S,
+             "f32": 1e3 * SORTED_FLOPS_PER_EVAL[footprint] * live
+             / F32_FLOPS_PER_S,
+             "sfu exp": 1e3 * live
+             / (SFU_EXP_PER_SM_CLOCK * sms * mhz * 1e6)}
+    term = max(terms, key=terms.get)
+    return {**counts, "live_bound_ms": terms[term], "live_bound_by": term,
+            "live_bound_terms_ms": terms, "sm_clock_mhz": mhz}
+
+
+def sorted_fwd_device(k3, calls: int):
+    """(device ms per traced launch, launches traced) of K3 over `calls`
+    calls of k3 (profile_calls: late in a run the trace can miss launches,
+    so the time is per launch it kept)."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        port = profile_calls(lambda i: k3(), calls)["port_kernels"]
+        if "sorted_fwd_kernel" in port or attempt == PROFILE_TRIES:
+            break
+        log(f"profile: window {attempt} kept no launch of sorted_fwd_kernel; "
+            "tracing again")
+        time.sleep(PROFILE_RETRY_S)
+    check("sorted_fwd_kernel" in port, f"{PROFILE_TRIES} profiler windows "
+          f"of {calls} K3 calls kept no launch of sorted_fwd_kernel")
+    ms, per_call = port["sorted_fwd_kernel"]
+    return ms / per_call, round(per_call * calls)
+
+
+def sorted_fwd_clock(k3) -> float:
+    """The SM clock nvidia-smi reads while about 300 ms of K3 launches
+    (the callable k3) run."""
+    import torch
+
+    ms = max(time_ms(k3, 5, 1), 1e-3)
+    for _ in range(max(1, int(300 / ms))):
+        k3()
+    mhz = sm_clock_mhz()
+    torch.cuda.synchronize()
+    return mhz
+
+
 def kernel_case(name, g, width, height, knobs, reps):
-    """Kernel vs plain twin on one frame's compositing inputs."""
+    """K3 against its plain twin and itself on one served frame's
+    compositing inputs (sorted_fwd_check), timed (CUDA events, and its
+    kernel alone by torch.profiler) beside its bounds (sorted_fwd_bound,
+    sorted_fwd_live_bound)."""
     import torch
 
     from tpu_gaussians_torch.core import camera as cam
@@ -555,23 +671,32 @@ def kernel_case(name, g, width, height, knobs, reps):
         gdense, cnt, tiles_x, tiles_y, stats = tiled.tile_lists(
             s, camera_z(g.means, c.view), height, width,
             cfg.sorted_band_capacity, cfg.sorted_pair_k)
-        _, chunks_k, max_err, tiles_differ = sorted_fwd_check(
+        _, chunks_k, max_err, tiles_differ, blocks = sorted_fwd_check(
             name, gdense, cnt, tiles_x, tiles_y, height, width, True, exit_t)
-        k_ms = time_ms(lambda: sorted_fwd.sorted_tiles(
-            gdense, cnt, tiles_x, axis=True, exit_t=exit_t), reps)
+
+        def k3():
+            return sorted_fwd.sorted_tiles(gdense, cnt, tiles_x, axis=True,
+                                           exit_t=exit_t)
+        k_ms = time_ms(k3, reps)
+        device_ms, traced = sorted_fwd_device(k3, reps)
         p_ms = time_ms(lambda: sorted_fwd.sorted_tiles_plain(
             gdense, cnt, tiles_x, axis=True, exit_t=exit_t), reps)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        live = sorted_fwd_live_bound(gdense, cnt, chunks_k, tiles_x, "axis",
+                                     sms, sorted_fwd_clock(k3))
 
     # The least the card could take for this run's work (the axis
-    # footprint's compositing, as the server renders).
+    # footprint's compositing, as the server renders): every composited
+    # (slot, pixel) pair (bound_ms), and the live ones (live_bound_ms).
     n_tiles = cnt.shape[0]
     case = {
         "case": name, "n": g.capacity, "width": width, "height": height,
-        "tiles": n_tiles, "cap": gdense.shape[0] // n_tiles,
+        "tiles": n_tiles, "blocks": blocks, "cap": gdense.shape[0] // n_tiles,
         "exit_t": exit_t, "slots_listed": int(cnt.sum()),
         "tiles_exit_differs": tiles_differ, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms,
-        **sorted_fwd_bound(cnt, chunks_k, "axis"),
+        "ms": k_ms, "device_ms": device_ms,
+        "device_launches_traced": traced, "plain_ms": p_ms,
+        **sorted_fwd_bound(cnt, chunks_k, "axis"), **live,
         "stats": {k: int(v) for k, v in stats.items()},
     }
     log("kernel case " + json.dumps(case))
@@ -644,28 +769,38 @@ def launched_blocks(fn, kernel: str) -> int:
     """The thread blocks of each launch of the kernel whose name holds
     `kernel` that fn() makes: the grid of its kernel events in a
     torch.profiler trace (CPU and CUDA activities, as profile_calls) of ten
-    calls of fn. Raises unless the trace holds such an event and every one
-    has the same grid."""
+    calls of fn, traced again (at most PROFILE_TRIES windows) while a
+    window keeps no such event. Raises unless a trace holds such an event
+    and every one in it has the same grid."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "trace.json"
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            # Late in a long process the trace can miss the first or last
-            # kernels of a session: wait at both ends, launch ten times.
-            time.sleep(0.2)
-            for _ in range(10):
-                fn()
-                torch.cuda.synchronize()
-            time.sleep(0.2)
-        prof.export_chrome_trace(str(trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    grids = {tuple(e["args"]["grid"]) for e in kernels
-             if kernel in e.get("name", "")}
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                # Late in a long process the trace can miss the first or
+                # last kernels of a session: wait at both ends, launch ten
+                # times.
+                time.sleep(0.2)
+                for _ in range(10):
+                    fn()
+                    torch.cuda.synchronize()
+                time.sleep(0.2)
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        grids = {tuple(e["args"]["grid"]) for e in kernels
+                 if kernel in e.get("name", "")}
+        if grids or attempt == PROFILE_TRIES:
+            break
+        log(f"launched_blocks: window {attempt} kept no launch of {kernel} "
+            f"({len(kernels)} kernel and "
+            f"{sum(e.get('cat') == 'cuda_runtime' for e in events)} runtime "
+            "events); tracing again")
+        time.sleep(PROFILE_RETRY_S)
     check(len(grids) == 1, f"grids {grids} of {kernel} in a trace of "
           f"{len(kernels)} kernel events "
           f"{sorted({e.get('name', '')[:60] for e in kernels})[:4]}")
@@ -1136,9 +1271,10 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
     """K4 against its plain twin on one view's compositing inputs (the
     binner's lists, K3's acc and chunks_done, a seeded N(0,1) cotangent):
     error, determinism, CUDA-event times and bound. K3 is held against its
-    twin on the same lists first, and timed there (CUDA events, and its
-    kernel alone by torch.profiler) beside its bound on those lists
-    (sorted_fwd_bound). Raises on a disagreement."""
+    twin and itself on the same lists first (sorted_fwd_check), and timed
+    there (CUDA events, and its kernel alone by torch.profiler) beside its
+    bounds on those lists (sorted_fwd_bound, sorted_fwd_live_bound). Raises
+    on a disagreement."""
     import torch
 
     from tpu_gaussians_torch.kernels import sorted_bwd, sorted_fwd
@@ -1152,7 +1288,7 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
         s = prepare_splats(g, view, proj, width, height, footprint=footprint)
         gdense, cnt, tiles_x, tiles_y, stats = tiled.tile_lists(
             s, camera_z(g.means, view), height, width, 0, pair_k)
-        acc, chunks, k3_err, k3_differ = sorted_fwd_check(
+        acc, chunks, k3_err, k3_differ, k3_blocks = sorted_fwd_check(
             name, gdense, cnt, tiles_x, tiles_y, height, width, axis, EXIT_T)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         g8 = torch.randn(acc.shape, generator=gen, device="cuda")
@@ -1183,10 +1319,15 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
             "sorted_fwd_plain_ms": time_ms(
                 lambda: sorted_fwd.sorted_tiles_plain(
                     gdense, cnt, tiles_x, axis=axis, exit_t=EXIT_T), 5, 1),
-            "sorted_fwd_device_ms": profile_calls(
-                lambda i: k3(), reps)["port_kernels"]["sorted_fwd_kernel"][0]}
-    k3_bound = {f"sorted_fwd_{k}": v for k, v in sorted_fwd_bound(
-        cnt, chunks, footprint).items()}
+            "sorted_fwd_blocks": k3_blocks}
+        (k3_times["sorted_fwd_device_ms"],
+         k3_times["sorted_fwd_device_launches_traced"]) = sorted_fwd_device(
+             k3, reps)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        k3_live = sorted_fwd_live_bound(gdense, cnt, chunks, tiles_x,
+                                        footprint, sms, sorted_fwd_clock(k3))
+    k3_bound = {f"sorted_fwd_{k}": v for k, v in {
+        **sorted_fwd_bound(cnt, chunks, footprint), **k3_live}.items()}
     # The least the card could take: the (slot, pixel) pairs the tiles
     # composited at K4's operations each, against the composited slots,
     # acc, g8, cnt and chunks_done read once and the rows written once.
@@ -2377,7 +2518,10 @@ def main() -> int:
                        c["sorted_fwd_max_abs_err"] for c in bwd_cases),
                    training={c["case"]: {k: c[f"sorted_fwd_{k}"] for k in (
                        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                       "slots_composited")} for c in bwd_cases})]
+                       "slots_composited") + K3_LIVE_KEYS}
+                       for c in bwd_cases},
+                   serving={c["case"]: {k: c[k] for k in (
+                       "device_ms",) + K3_LIVE_KEYS} for c in cases})]
     for name, kind_, line in (("splat_sep_fwd", "fwd", 697),
                               ("splat_sep_bwd", "bwd", 742)):
         sep = [{"case": c["case"], "ms": c[f"{kind_}_ms"],

@@ -10,6 +10,8 @@ Tolerances:
   128-slot sub-block (T *= 1 - sum of contributions), so they round
   differently: rtol 1e-4 / atol 1e-5; and on a tile whose whole-tile exit
   decision fell on the other side of exit_t, the bound is exit_t itself.
+  Bit-identical across two launches (each pixel composited in slot order;
+  the culled pairs are those whose alpha is under the cutoff).
 - splat_sep_fwd (K1): rtol 1e-5 / atol 1e-5, sums of positive terms in
   another order (its product on the tensor cores, TF32 split three ways);
   bit-identical across two launches.
@@ -182,6 +184,12 @@ def test_kernel_matches_plain_twin(cuda, footprint, exit_t):
     ref, ref_chunks = sorted_fwd.sorted_tiles_plain(gdense, cnt, TILES_X,
                                                     axis=axis, exit_t=exit_t)
     assert chunks[:2].tolist() == [1, 2]
+    assert_sorted_fwd_close(acc, chunks, ref, ref_chunks, exit_t)
+
+
+def assert_sorted_fwd_close(acc, chunks, ref, ref_chunks, exit_t):
+    """K3 against its twin at the tolerance stated above: rtol 1e-4 / atol
+    1e-5 on tiles that exit after the same chunk, exit_t on the others."""
     same = (chunks == ref_chunks).repeat_interleave(2048).cpu().numpy()
     a, r = acc.cpu().numpy(), ref.cpu().numpy()
     np.testing.assert_allclose(a[:, same], r[:, same], rtol=1e-4, atol=1e-5)
@@ -978,28 +986,41 @@ def test_splat_v1_bwd_rejects_misaligned_g8(cuda):
     torch.cuda.synchronize()
 
 
-def launched_blocks(fn, kernel):
+def launched_blocks(fn, kernel, tries=3):
     """Thread blocks of each launch of the kernel whose name holds `kernel`
     that fn() makes: the grid of its kernel events in a torch.profiler
-    trace of three calls of fn, which must agree."""
+    trace of three calls of fn, which must agree. The profiler now and then
+    keeps no launch of the kernel in a window on an H100: such a window is
+    traced again, at most `tries` windows in all, with a warning."""
     import json
     import tempfile
+    import time
+    import warnings
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "trace.json"
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(str(trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-    grids = {tuple(e["args"]["grid"]) for e in events
-             if e.get("cat") == "kernel" and kernel in e.get("name", "")}
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+        grids = {tuple(e["args"]["grid"]) for e in events
+                 if e.get("cat") == "kernel" and kernel in e.get("name", "")}
+        if grids or attempt == tries:
+            break
+        warnings.warn(
+            f"profiler window {attempt} kept no launch of {kernel} "
+            f"({sum(e.get('cat') == 'kernel' for e in events)} kernel and "
+            f"{sum(e.get('cat') == 'cuda_runtime' for e in events)} runtime "
+            "events); tracing again")
+        time.sleep(1.0)
     assert len(grids) == 1
     return int(np.prod(grids.pop()))
 
@@ -1046,3 +1067,132 @@ def test_sorted_bwd_kernel_edges(cuda, case, footprint):
         assert not rows[t, min(c, 512 * k):].any()
         if min(c, 512 * k):
             assert rows[t, :min(c, 512 * k)].any()
+
+
+# K3's culling at its edges: a 2x2 tile grid of cap 1024 with lists of 700,
+# 1024, 530 and 0 slots.
+CULL_EDGE_TILES_X = 2
+CULL_EDGE_CNT = (700, 1024, 530, 0)
+
+
+def cull_edge_lists(axis, nonfinite=False, seed=11):
+    """Slot lists at the edges of K3's culling rule, as numpy (gdense
+    (4*CAP, 16), cnt (4,), kind (4*CAP,) of str), each slot of kind
+    - "thin": 0.3-1.5 px across and 8-60 px long (rotated for EWA, along x
+      or y for the axis footprint), centred within 1.5 px of a boundary
+      between two warps' columns and 1 px of one between two blocks' rows;
+    - "near": op 1e-5 times 1 + 1e-3, 1 + 1e-6, 1, 1 - 1e-6 or 1 - 1e-3,
+      centred on a pixel centre or between four;
+    - "opaque": op 1;
+    - "none": op 0 or -0.1;
+    - "nonpd": a < 0 or c = 0 (and b^2 > ac for EWA), three slots late in
+      tile 1's list (they cover the tile at the clamp, 0.9999; none whose
+      row factor grows, where the twin's exponent floor on the column
+      factor (kernels/sorted_fwd.EXP_FLOOR) would part it from any kernel);
+    - "nonfinite": a NaN px, a, op or an infinite c, four slots in tile 2,
+      only with nonfinite=True (the twin then gives NaN, the kernel the
+      clamp: not for comparing the two);
+    - "dead": the rows past cnt."""
+    rng = np.random.default_rng(seed)
+    n_tiles = len(CULL_EDGE_CNT)
+    gd = np.zeros((n_tiles, CAP, 16), np.float32)
+    gd[..., 2] = gd[..., 4] = 1.0                      # dead row: op 0
+    kind = np.full((n_tiles, CAP), "dead", dtype=object)
+
+    def conic(sx, sy, theta):
+        cos, sin = np.cos(theta), np.sin(theta)
+        a = cos * cos / sx ** 2 + sin * sin / sy ** 2
+        c = sin * sin / sx ** 2 + cos * cos / sy ** 2
+        b = cos * sin * (1.0 / sx ** 2 - 1.0 / sy ** 2)
+        return a, (0.0 if axis else b), c
+
+    for t, m in enumerate(CULL_EDGE_CNT):
+        x0, y0 = (t % CULL_EDGE_TILES_X) * 128, (t // CULL_EDGE_TILES_X) * 16
+        kinds = rng.choice(["thin", "near", "opaque", "none"], m,
+                           p=[0.68, 0.25, 0.02, 0.05]).astype(object)
+        if t == 1:
+            kinds[m - 40:m - 10:10] = "nonpd"
+        if t == 2 and nonfinite:
+            kinds[100:140:10] = "nonfinite"
+        for s, k in enumerate(kinds):
+            row = gd[t, s]
+            row[6:9] = rng.uniform(0, 1, 3)
+            row[9] = 1.0
+            row[10] = rng.uniform(1.0, 4.0)
+            if k == "thin":
+                long, short = rng.uniform(8, 60), rng.uniform(0.3, 1.5)
+                if axis:
+                    sx, sy = (long, short) if rng.uniform() < 0.5 else (
+                        short, long)
+                    a, b, c = conic(sx, sy, 0.0)
+                else:
+                    a, b, c = conic(long, short, rng.uniform(0, np.pi))
+                row[0] = x0 + 32 * rng.integers(0, 5) + rng.uniform(-1.5, 1.5)
+                row[1] = y0 + 2 * rng.integers(0, 9) + rng.uniform(-1, 1)
+                row[5] = rng.uniform(0.05, 0.6)
+            elif k == "near":
+                a, b, c = conic(rng.uniform(0.5, 5), rng.uniform(0.5, 5),
+                                rng.uniform(0, np.pi))
+                row[0] = x0 + rng.integers(0, 128) + rng.choice([0.5, 0.0])
+                row[1] = y0 + rng.integers(0, 16) + rng.choice([0.5, 0.0])
+                row[5] = 1e-5 * rng.choice(
+                    [1 + 1e-3, 1 + 1e-6, 1.0, 1 - 1e-6, 1 - 1e-3])
+            else:
+                a, b, c = conic(rng.uniform(1, 6), rng.uniform(1, 6),
+                                rng.uniform(0, np.pi))
+                row[0] = x0 + rng.uniform(-8, 136)
+                row[1] = y0 + rng.uniform(-8, 24)
+                row[5] = {"opaque": 1.0, "none": rng.choice([0.0, -0.1]),
+                          "nonpd": 0.3, "nonfinite": 0.5}[k]
+            row[2:5] = a, b, c
+            kind[t, s] = k
+        for j, s in enumerate(np.flatnonzero(kinds == "nonpd")):
+            gd[t, s, 2:5] = [(-0.01, 0.0, 0.02), (-0.5, 0.0, 0.02),
+                             (0.02, 0.0 if axis else 0.05, 0.0)][j]
+        for j, s in enumerate(np.flatnonzero(kinds == "nonfinite")):
+            field, value = [(0, np.nan), (2, np.nan), (4, np.inf),
+                            (5, np.inf)][j]
+            gd[t, s, field] = value
+    return (gd.reshape(-1, 16), np.array(CULL_EDGE_CNT, np.int32),
+            kind.reshape(-1))
+
+
+def sorted_fwd_edge_inputs(case, axis, device):
+    """(gdense, cnt, tiles_x) on `device`: K4's edge case `case` (its lists
+    at seed 9), or "cull_edges" (cull_edge_lists, all finite)."""
+    if case == "cull_edges":
+        gd, cnt, _ = cull_edge_lists(axis)
+        tiles_x = CULL_EDGE_TILES_X
+    else:
+        kw = SORTED_EDGE_CASES[case]
+        tiles_x = kw["tiles_x"]
+        gd, cnt = slot_lists(tiles_x, kw["tiles_y"], kw["cnt"], axis,
+                             [(0.01, 0.2), (0.5, 0.95)] * len(kw["cnt"]),
+                             seed=9)
+    return (torch.from_numpy(gd).to(device), torch.from_numpy(cnt).to(device),
+            tiles_x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("footprint", ["axis", "ewa"])
+@pytest.mark.parametrize("case", sorted(SORTED_EDGE_CASES) + ["cull_edges"])
+def test_sorted_fwd_kernel_edges(cuda, case, footprint):
+    """K3 on K4's edge lists and at its culling rule's edges: a cluster of
+    sorted_fwd.CLUSTER blocks per tile, two launches bit for bit, and its
+    twin at the exit-aware tolerance above."""
+    axis = footprint == "axis"
+    gdense, cnt, tiles_x = sorted_fwd_edge_inputs(case, axis, cuda)
+
+    def k3():
+        return sorted_fwd.sorted_tiles(gdense, cnt, tiles_x, axis=axis)
+
+    acc, chunks = k3()
+    again, chunks_again = k3()
+    torch.cuda.synchronize()
+    assert torch.equal(acc, again) and torch.equal(chunks, chunks_again)
+    blocks = launched_blocks(k3, "sorted_fwd_kernel")
+    assert blocks == sorted_fwd.CLUSTER * cnt.shape[0]
+    ref, ref_chunks = sorted_fwd.sorted_tiles_plain(gdense, cnt, tiles_x,
+                                                    axis=axis)
+    assert bool(torch.isfinite(acc).all())
+    assert_sorted_fwd_close(acc, chunks, ref, ref_chunks, 1e-6)

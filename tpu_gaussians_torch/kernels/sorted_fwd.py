@@ -14,6 +14,11 @@ cnt (n_tiles,) int32, and return
       l = row*128 + col), the layout of the TPU kernel's output;
   chunks_done (n_tiles,) int32: the 512-slot chunks each tile composited
       before the whole-tile early exit.
+
+The kernel culls (slot, pixel) pairs where a_raw cannot reach the 1e-5
+cutoff, which leaves its output as it was. `slot_extent` and `cull_blocks`
+are its rule in torch, for the tests and for `cull_counts`, which counts
+the pairs a launch composites, needs (live) and evaluates.
 """
 
 from __future__ import annotations
@@ -29,6 +34,15 @@ from tpu_gaussians_torch.ops.binning import (
 GD_ROWS = 16   # floats per slot row
 FEAT_PAD = 8   # output rows
 EXP_FLOOR = -30.0   # the twins' exponent floor (see slot_alpha)
+CLUSTER = 8         # the kernel's blocks per tile: TH // CLUSTER rows each
+WARP_COLS = 32      # the columns of one of a block's warps
+# The culling rule's slack (csrc/sorted_fwd.cu): Q = Q_SCALE (2 ln(op /
+# 1e-5) + Q_SLACK), the extent's half-widths sqrt(Q c / det) and sqrt(Q a /
+# det) plus MARGIN_PX, and conics with det < MIN_DET_RATIO a c never culled.
+Q_SLACK = 1e-4
+Q_SCALE = 1.01
+MIN_DET_RATIO = 2e-3
+MARGIN_PX = 1.0
 
 launches = 0   # kernel launches made by sorted_tiles
 
@@ -103,6 +117,102 @@ def exclusive_cumprod(x: torch.Tensor, dim: int) -> torch.Tensor:
     ones = torch.ones_like(x.narrow(dim, 0, 1))
     return torch.cat([ones, torch.cumprod(x, dim=dim).narrow(
         dim, 0, x.shape[dim] - 1)], dim=dim)
+
+
+def slot_extent(gd: torch.Tensor, axis: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's culling rule for slot rows gd (..., 16) -> half-widths
+    (ex, ey), each (...): every pixel where the slot's a_raw can reach
+    ALPHA_CUTOFF has |gx - px| <= ex and |gy - py| <= ey. With Q = Q_SCALE
+    (2 ln(op / 1e-5) + Q_SLACK) and det = a c - b^2 (b = 0 for the axis
+    footprint), ex = sqrt(Q c / det) + 1 and ey = sqrt(Q a / det) + 1; the
+    slack covers the f32 rounding of the exponent, the exp and the product
+    while det >= MIN_DET_RATIO a c. -inf where no pixel can reach the
+    cutoff (op <= 0 or Q <= 0); +inf where the slot is never culled: a
+    conic that is not positive definite or is thinner than that, or a
+    non-finite value among px, py, a, b, c, op."""
+    px, py, a, c, op = (gd[..., k] for k in (0, 1, 2, 4, 5))
+    b = torch.zeros_like(a) if axis else gd[..., 3]
+    ac = a * c
+    det = ac - b * b
+    finite = torch.ones_like(a, dtype=torch.bool)
+    for v in (px, py, a, b, c, op, ac):
+        finite &= torch.isfinite(v)
+    cullable = (finite & (a > 0) & (c > 0) & (det > 0)
+                & (det >= MIN_DET_RATIO * ac))
+    pos = op > 0
+    q = torch.where(pos, 2.0 * torch.log(torch.where(pos, op, 1.0)
+                                         / ALPHA_CUTOFF) + Q_SLACK, -1.0)
+    touches = q > 0
+    safe = cullable & touches
+    qe = q * Q_SCALE
+    det_s = torch.where(safe, det, 1.0)
+    inf = torch.full_like(a, float("inf"))
+    out = []
+    for num in (c, a):
+        half = torch.sqrt(torch.where(safe, qe * num / det_s, 0.0)) + MARGIN_PX
+        out.append(torch.where(cullable, torch.where(touches, half, -inf),
+                               inf))
+    return out[0], out[1]
+
+
+def cull_blocks(gd: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                axis: bool) -> torch.Tensor:
+    """(T, m, CLUSTER, TWC // WARP_COLS) bool: whether the kernel's block r
+    (tile rows r*PPT ... r*PPT + PPT - 1, PPT = TH // CLUSTER) and its warp
+    w (columns w*32 ... w*32 + 31) evaluate slot rows gd (T, m, 16) of
+    tiles whose first column and row are x0, y0 (T,) -- the kernel's
+    comparisons of the extents with its rows' and columns' pixel
+    centres."""
+    ex, ey = slot_extent(gd, axis)
+    never = torch.isinf(ex) & (ex > 0)
+    px, py = gd[..., 0, None], gd[..., 1, None]
+    ppt = TH // CLUSTER
+    dev = gd.device
+    rows = torch.arange(CLUSTER, device=dev) * ppt
+    ylo = (y0[:, None] + rows[None, :]).float() + 0.5          # (T, CLUSTER)
+    yhi = (y0[:, None] + rows[None, :] + ppt - 1).float() + 0.5
+    cols = torch.arange(TWC // WARP_COLS, device=dev) * WARP_COLS
+    xl = (x0[:, None] + cols[None, :]).float() + 0.5            # (T, WARPS)
+    xh = (x0[:, None] + cols[None, :] + WARP_COLS - 1).float() + 0.5
+    ey, ex = ey[..., None], ex[..., None]
+    y_ok = (py - ey <= yhi[:, None, :]) & (py + ey >= ylo[:, None, :])
+    x_ok = (px - ex <= xh[:, None, :]) & (px + ex >= xl[:, None, :])
+    both = y_ok[..., :, None] & x_ok[..., None, :]
+    return both | never[..., None, None]
+
+
+def cull_counts(gdense: torch.Tensor, cnt: torch.Tensor,
+                chunks_done: torch.Tensor, tiles_x: int, axis: bool,
+                tiles_per_batch: int = 16) -> dict:
+    """The (slot, pixel) pairs of one launch over the slots its tiles
+    composited (the first min(cnt, 512 chunks_done) of each list):
+    composited_pairs, all of them; live_pairs, those with slot_alpha's
+    a_raw >= ALPHA_CUTOFF; evaluated_pairs, those the kernel's culling
+    rule leaves (cull_blocks). Batches of tiles bound the memory."""
+    n_tiles, cap = _check(gdense, cnt)
+    g = gdense.reshape(n_tiles, cap, GD_ROWS)
+    limit = torch.minimum(cnt.to(torch.int64),
+                          chunks_done.to(torch.int64) * NBS)
+    gx, gy = tile_pixels(n_tiles, tiles_x, gdense.device)
+    tile = torch.arange(n_tiles, device=gdense.device)
+    x0, y0 = (tile % tiles_x) * TWC, (tile // tiles_x) * TH
+    live = evaluated = 0
+    sub = NBS // 4
+    for t0 in range(0, n_tiles, tiles_per_batch):
+        t1 = min(t0 + tiles_per_batch, n_tiles)
+        top = int(limit[t0:t1].max())
+        for lo in range(0, top, sub):
+            gd = g[t0:t1, lo:lo + sub]
+            used = (torch.arange(lo, lo + gd.shape[1], device=gd.device)[
+                None, :] < limit[t0:t1, None])                 # (T, m)
+            a_raw = slot_alpha(gd, gx[t0:t1], gy[t0:t1], axis)[0]
+            live += int(((a_raw >= ALPHA_CUTOFF) & used[..., None]).sum())
+            blocks = cull_blocks(gd, x0[t0:t1], y0[t0:t1], axis)
+            evaluated += int((blocks & used[..., None, None]).sum())
+    per_block_warp = (TH // CLUSTER) * WARP_COLS
+    return {"composited_pairs": int(limit.sum()) * TPS,
+            "live_pairs": live, "evaluated_pairs": evaluated * per_block_warp}
 
 
 def sorted_tiles_plain(gdense: torch.Tensor, cnt: torch.Tensor, tiles_x: int,

@@ -1,11 +1,13 @@
 """The shared body of the single-kernel probes `tools/ab_k1.py`,
-`tools/ab_k2.py`, `tools/ab_k7a.py`, `tools/ab_k7b.py`, `tools/ab_k8a.py`
-and `tools/ab_k8b.py`: build this
+`tools/ab_k2.py`, `tools/ab_k3.py`, `tools/ab_k7a.py`, `tools/ab_k7b.py`,
+`tools/ab_k8a.py` and `tools/ab_k8b.py`: build this
 tree's source of one kernel beside other sources of it, hold every build
 against the plain twin and against itself, and time the builds in turns.
 
 Not a script: each probe builds its own cases and bound and calls `setup`,
-`load_builds` and `compare`. Needs one NVIDIA GPU and nvcc.
+`load_builds` and `compare` (K3, whose output is a pair and whose check is
+chip_smoke's, its own loop), and `ablation_sources` for its --ablations.
+Needs one NVIDIA GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -48,14 +50,33 @@ def setup(doc: str, ablations: bool = False):
     return args, cs
 
 
-def load_builds(kernel: str, others, launcher):
+def ablation_sources(build, kernel: str, ablations: dict):
+    """The --ablations copies of this tree's `csrc/<kernel>.cu`, written to
+    _build/<name>.cu: ablations maps a name to its edits (snippet,
+    replacement, occurrences), each snippet found exactly that often."""
+    src = (build.CSRC / f"{kernel}.cu").read_text()
+    build.BUILD.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for name, edits in ablations.items():
+        text = src
+        for old, new, count in edits:
+            if text.count(old) != count:
+                raise RuntimeError(f"{name}: {text.count(old)} of the "
+                                   f"snippet in {kernel}.cu, not {count}")
+            text = text.replace(old, new)
+        paths.append(build.BUILD / f"{name}.cu")
+        paths[-1].write_text(text)
+    return paths
+
+
+def load_builds(kernel: str, others, launcher, sass: bool = True):
     """({tag: run}, {tag: HMMA count}) for this tree's build of `kernel`
     (tag "tree") and each other source (tag: its stem), all built together
     by `kernels/build.build_others`; run = launcher(library path). Prints
-    ptxas' register and spill lines and each build's HMMA count (None for
-    another source whose kernel is not one function, e.g. a template
-    built for two band heights) and SASS opcode counts
-    (`kernels/build.sass_opcodes`)."""
+    ptxas' register and spill lines and, with `sass`, each build's HMMA
+    count (None for another source whose kernel is not one function, e.g.
+    a template built for two band heights) and SASS opcode counts
+    (`kernels/build.sass_opcodes`); without it the counts are None."""
     from tpu_gaussians_torch.kernels import build
 
     runs, hmma = {}, {}
@@ -63,19 +84,21 @@ def load_builds(kernel: str, others, launcher):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build {tag}: {line.strip()}", flush=True)
+        runs[tag] = launcher(so)
+        hmma[tag] = None
+        if not sass:
+            continue
         try:
             hmma[tag] = build.sass_count(so, f"{kernel}_kernel", "HMMA")
         except RuntimeError:
             if tag == "tree":
                 raise
-            hmma[tag] = None
         print(f"build {tag}: {hmma[tag]} HMMA instructions in the kernel's "
               f"SASS", flush=True)
         if hmma[tag] is not None:
             print(f"build {tag}: SASS opcodes "
                   + json.dumps(build.sass_opcodes(so, f"{kernel}_kernel")),
                   flush=True)
-        runs[tag] = launcher(so)
     return runs, hmma
 
 

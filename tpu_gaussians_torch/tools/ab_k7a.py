@@ -65,23 +65,6 @@ ABLATIONS = {
 WRONG_SUMS = ("one_mma", "no_exp")
 
 
-def ablation_sources(build):
-    """The --ablations copies of this tree's kernel, written to _build/."""
-    src = (build.CSRC / f"{KERNEL}.cu").read_text()
-    build.BUILD.mkdir(parents=True, exist_ok=True)
-    paths = []
-    for name, edits in ABLATIONS.items():
-        text = src
-        for old, new, count in edits:
-            if text.count(old) != count:
-                raise RuntimeError(f"{name}: {text.count(old)} of the "
-                                   f"snippet in {KERNEL}.cu, not {count}")
-            text = text.replace(old, new)
-        paths.append(build.BUILD / f"{name}.cu")
-        paths[-1].write_text(text)
-    return paths
-
-
 def main() -> int:
     args, cs = ab_builds.setup(__doc__, ablations=True)
 
@@ -89,8 +72,9 @@ def main() -> int:
 
     from tpu_gaussians_torch.kernels import binned, build
 
-    others = list(args.others) + (ablation_sources(build)
-                                  if args.ablations else [])
+    others = list(args.others) + (
+        ab_builds.ablation_sources(build, KERNEL, ABLATIONS)
+        if args.ablations else [])
     runs, hmma = ab_builds.load_builds(
         KERNEL, others, lambda so: ab_k8a.launcher(cs, so, KERNEL))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
