@@ -11,9 +11,9 @@ Phases, each of which fails the run by raising:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc for every kernel source, all started together; nvcc's
               seconds and ptxas' register and shared-memory lines; the count
-              of HMMA (tensor-core) instructions in K1's, K2's, K7a's, K7b's,
-              K8a's, K8b's, K9a's and K9b's SASS (cuobjdump), none of which
-              may be 0
+              of HMMA (tensor-core) instructions in K1's, K2's, K6's, K7a's,
+              K7b's, K8a's, K8b's, K9a's and K9b's SASS (cuobjdump), none of
+              which may be 0
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -101,7 +101,12 @@ Phases, each of which fails the run by raising:
               (capacity 3000: auto -> accum, dense): the checks of phase 7,
               K5 launched exactly 901 times (6 per step and the preview), K6
               (splat_v2_bwd) 900, no other kernel; a profile of its steps;
-              K5 and K6 against their twins on the fitted model
+              K5 and K6 against their twins on the fitted model, K6 twice
+              (bit-identical) with its pixel slices, device time
+              (torch.profiler; its main kernel and slice sum apart) and
+              bound on this card (its two products on the tensor cores, the
+              SM clock read while it runs, the deciding term named) beside
+              the 52-flop f32 one, as on every K5/K6 case
  14. fit ewa binned  the recipe plus --footprint ewa --max_gaussians 16384
               --render_mode accum: the checks of phase 7, K8a launched
               exactly 901 times and K8b 900, no other kernel, no pair
@@ -152,7 +157,10 @@ Phases, each of which fails the run by raising:
               backward K9b on a restaging of the saved columns; 1 train
               step timed and 1 profiled, K5 and K9b launched exactly 4
               times per step each and no other kernel; view 0's sums and
-              gradients against both directions on the tile grid
+              gradients against both directions on the tile grid; K5's
+              bound on view 0's band staging and K9b's on its restaging
+              (at the SM clock read while K9b runs), each beside its
+              CUDA-event time there
  20. report   one `kernels` JSON line, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
@@ -162,8 +170,8 @@ output column (at least 1; their moments are sums of signed terms that
 cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest magnitude of its
 output column (the JAX suite's tolerance for the sorted backward: ctg - P_i
 cancels and is divided by 1 - a); K1, K2, K3, K4, K6, K7a, K7b, K8a, K8b,
-K9a and K9b are bit-identical across two launches (K1, K2, K7a, K7b, K8a,
-K8b, K9a and K9b run their products on the tensor cores, in TF32 split
+K9a and K9b are bit-identical across two launches (K1, K2, K6, K7a, K7b,
+K8a, K8b, K9a and K9b run their products on the tensor cores, in TF32 split
 three ways, and sum in a fixed order; K3 composites each pixel in slot
 order and culls only pairs whose alpha is under the cutoff). K9a
 against K5 and binned against dense renders: rtol 1e-4 / atol 1e-5;
@@ -231,9 +239,15 @@ SORTED_BWD_FLOPS_PER_EVAL = {"ewa": 66, "axis": 60}
 # f32 operations per (gaussian, pixel) pair in K5 (csrc/splat_v2_fwd.cu):
 # dx, dy, the Horner exponent (7) and 8 multiply-adds; the exp not counted.
 V2_FWD_FLOPS_PER_PAIR = 25
-# Per (gaussian, pixel) pair in K6's pixel loop (csrc/splat_v2_bwd.cu): dx,
-# dy, the Horner exponent (7), g_x (8 multiply-adds), g_e, u and v, the
-# five moment sums (8), g_featop (8 multiply-adds); the exp not counted.
+# Per (gaussian, pixel) pair of K6's function with every term paid per
+# pair and the products on the CUDA cores: dx, dy, the Horner exponent
+# (7), g_x (8 multiply-adds), g_e, u and v, the five moment sums (8),
+# g_featop (8 multiply-adds); the exp not counted. K6 runs both products on
+# the tensor cores (csrc/splat_v2_bwd.cu, as the TPU did on its matrix
+# unit): its bound is v2_bwd_bound's, on K9b's terms per pair (the same
+# per-pair function with op folded into featsop: the products' 32 flops, 11
+# elementwise, one exp), and this f32 figure is printed beside it
+# (bwd_bound_ms_52flop).
 V2_BWD_FLOPS_PER_PAIR = 52
 # Per (slot, pixel) pair in K8a's function with its product on the CUDA
 # cores: dy, the exponent (2 multiply-adds), op * exp, 8 multiply-adds; and
@@ -392,6 +406,88 @@ def v1_live_pairs(mask, gdata, nb: int, tp: int, hw: int) -> int:
         mask.shape[0], device=mask.device), 0, tp)
     return int(((mask.to(torch.int64) * live[None, :]).sum(dim=1)
                 * tile_px).sum())
+
+
+def v2_alive_pairs(lo, cnt, gdata, nb: int, hw: int) -> int:
+    """The (gaussian, pixel) pairs K5's and K6's function needs: each
+    band's live rows (op > 0) within its block range, times the band's
+    pixels inside the frame."""
+    import torch
+
+    live = (gdata[:, 5] > 0).to(torch.int64).reshape(-1, nb).sum(dim=1)
+    live_csum = torch.nn.functional.pad(live.cumsum(0), (1, 0))
+    lo64, cnt64 = lo.to(torch.int64), cnt.to(torch.int64)
+    band_px = torch.clamp(hw - 2048 * torch.arange(
+        lo.shape[0], device=lo.device), 0, 2048)
+    return int(((live_csum[lo64 + cnt64] - live_csum[lo64]) * band_px).sum())
+
+
+def v2_fwd_bound(lo, cnt, gdata, nb: int, hw: int, hw_pad: int) -> dict:
+    """K5's bound: its alive pairs (v2_alive_pairs) at
+    V2_FWD_FLOPS_PER_PAIR f32 operations each, against gdata, lo and cnt
+    read once and the (8, hw_pad) sums written once."""
+    pairs = v2_alive_pairs(lo, cnt, gdata, nb, hw)
+    ops_ms = 1e3 * V2_FWD_FLOPS_PER_PAIR * pairs / F32_FLOPS_PER_S
+    bytes_ms = 1e3 * (gdata.numel() * 4 + 2 * lo.numel() * 4
+                      + 8 * hw_pad * 4) / HBM_BYTES_PER_S
+    return {"alive_pairs": pairs, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def v2_bwd_bound(lo, cnt, gdata, nb: int, hw: int, hw_pad: int, sms: int,
+                 mhz: float) -> dict:
+    """K6's bound on this card for its alive pairs (v2_alive_pairs), for a
+    kernel that runs its two products on the tensor cores
+    (csrc/splat_v2_bwd.cu does, as the TPU did on its matrix unit): the
+    largest of tensor_core_bound's terms at the SM clock `mhz`, on K9b's
+    per-pair terms (the products' 32 flops, 11 elementwise with the row
+    terms paid once per row, one exp), against gdata, lo, cnt and g8 read
+    once and the (n_pad, 16) rows written once. The 52-flop f32 figure
+    beside it."""
+    pairs = v2_alive_pairs(lo, cnt, gdata, nb, hw)
+    nbytes = 2 * gdata.numel() * 4 + 2 * lo.numel() * 4 + 8 * hw_pad * 4
+    ms, term, terms = tensor_core_bound(
+        pairs, V1_BWD_ELEMENTWISE_FLOPS_PER_PAIR,
+        V1_BWD_PRODUCT_FLOPS_PER_PAIR, nbytes, sms, mhz)
+    return {"bwd_bound_ms": ms,
+            "bwd_bound_by": "bytes" if term == "bytes" else "operations",
+            "bwd_bound_term": term, "bwd_bound_terms_ms": terms,
+            "bwd_bound_ms_52flop": max(
+                1e3 * V2_BWD_FLOPS_PER_PAIR * pairs / F32_FLOPS_PER_S,
+                1e3 * nbytes / HBM_BYTES_PER_S),
+            "bwd_sm_clock_mhz": mhz}
+
+
+def v1_bwd_bound(mask, gdata, nb: int, tp: int, hw: int, hw_pad: int,
+                 sms: int, mhz: float) -> dict:
+    """K9b's bound on this card for its live pairs (v1_live_pairs): the
+    largest of tensor_core_bound's terms on its per-pair terms at the SM
+    clock `mhz`, against gdata, the mask and g8 read once and the (n_pad,
+    16) rows written once; the 55-flop f32 figure beside it."""
+    pairs = v1_live_pairs(mask, gdata, nb, tp, hw)
+    nbytes = 2 * gdata.numel() * 4 + mask.numel() + 8 * hw_pad * 4
+    ms, term, terms = tensor_core_bound(
+        pairs, V1_BWD_ELEMENTWISE_FLOPS_PER_PAIR,
+        V1_BWD_PRODUCT_FLOPS_PER_PAIR, nbytes, sms, mhz)
+    return {"alive_pairs": pairs, "bound_ms": ms,
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "bound_terms_ms": terms,
+            "bound_ms_55flop": max(
+                1e3 * V1_BWD_FLOPS_PER_PAIR * pairs / F32_FLOPS_PER_S,
+                1e3 * nbytes / HBM_BYTES_PER_S),
+            "sm_clock_mhz": mhz}
+
+
+def clock_while(fn, ms: float) -> float:
+    """The SM clock nvidia-smi reports while launches of fn (about `ms`
+    each) run queued for about 0.3 s."""
+    import torch
+
+    for _ in range(max(1, int(300 / max(ms, 1e-3)))):
+        fn()
+    mhz = sm_clock_mhz()
+    torch.cuda.synchronize()
+    return mhz
 
 
 def scene_arrays(n: int, seed: int):
@@ -1361,8 +1457,10 @@ def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
     """K5, and K6 on a seeded N(0,1) cotangent (zero beyond the frame and in
     rows 5-7, as the backward stages it), against their plain twins on one
     view's EWA accumulation inputs, staged by the render path's own
-    ops/splat staging: errors, K6's determinism, CUDA-event times and
-    bounds. Raises on a disagreement."""
+    ops/splat staging: errors, K6's determinism, CUDA-event times, K6's
+    pixel slices and device ms per call (its main kernel and slice sum
+    apart), and bounds (v2_fwd_bound; v2_bwd_bound at the SM clock read
+    while K6 runs). Raises on a disagreement."""
     import torch
 
     from tpu_gaussians_torch.kernels import splat_v2
@@ -1401,40 +1499,29 @@ def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
         p_ms = time_ms(lambda: splat_v2.v2_fwd_plain(*args), 5, 1)
         kb_ms = time_ms(lambda: splat_v2.splat_v2_bwd(*bargs), reps)
         pb_ms = time_ms(lambda: splat_v2.v2_bwd_plain(*bargs), 5, 1)
-    # The least the card could take: the (gaussian, pixel) pairs that need
-    # evaluating -- each band's live rows (op > 0) within its block range,
-    # times the band's pixels inside the frame -- at K5's (K6's) operations
-    # each, against gdata, lo and cnt read once and the (8, hw_pad) sums
-    # written once (K6: g8 read once and the (n_pad, 16) rows written once).
-    # pairs_evaluated is what the kernels run: every row of the range
-    # (padding and dead capacity rows included) on every pixel of the band.
+        prof = profile_calls(lambda i: splat_v2.splat_v2_bwd(*bargs), reps)
+        parts = device_split(prof, "splat_v2_bwd_kernel", "segment_sum_kernel")
+        mhz = clock_while(lambda: splat_v2.splat_v2_bwd(*bargs), kb_ms)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # The least the card could take, for the (gaussian, pixel) pairs that
+    # need evaluating (v2_alive_pairs). pairs_evaluated is what the kernels
+    # run: every row of the range (padding and dead capacity rows included)
+    # on every pixel of the band.
     pairs = int(cnt.to(torch.int64).sum()) * nb * splat_v2.TP2
-    live = (gdata[:, 5] > 0).to(torch.int64).reshape(-1, nb).sum(dim=1)
-    live_csum = torch.nn.functional.pad(live.cumsum(0), (1, 0))
-    lo64, cnt64 = lo.to(torch.int64), cnt.to(torch.int64)
-    band_px = torch.clamp(hw - splat_v2.TP2 * torch.arange(
-        lo.shape[0], device=lo.device), 0, splat_v2.TP2)
-    alive_pairs = int(((live_csum[lo64 + cnt64] - live_csum[lo64])
-                       * band_px).sum())
-    in_bytes = gdata.numel() * 4 + 2 * lo.numel() * 4
-    bounds = {}
-    for kind, flops, nbytes in (
-            ("", V2_FWD_FLOPS_PER_PAIR, in_bytes + 8 * hw_pad * 4),
-            ("bwd_", V2_BWD_FLOPS_PER_PAIR,
-             in_bytes + 8 * hw_pad * 4 + gdata.numel() * 4)):
-        ops_ms = 1e3 * flops * alive_pairs / F32_FLOPS_PER_S
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        bounds[f"{kind}bound_ms"] = max(ops_ms, bytes_ms)
-        bounds[f"{kind}bound_by"] = ("operations" if ops_ms >= bytes_ms
-                                     else "bytes")
+    fwd = v2_fwd_bound(lo, cnt, gdata, nb, hw, hw_pad)
     case = {"case": name, "n_pad": gdata.shape[0], "nb": nb,
             "width": width, "height": height, "bands": lo.shape[0],
-            "pairs_evaluated": pairs, "alive_pairs": alive_pairs,
+            "pairs_evaluated": pairs, "alive_pairs": fwd.pop("alive_pairs"),
             "alive": int((gdata[:, 5] > 0).sum()), "max_abs_err": err,
             "max_abs_ref": float(ref.abs().max()),
             "ms": k_ms, "plain_ms": p_ms, "bwd_max_abs_err": err_b,
             "bwd_max_abs_ref": float(ref_b.abs().max()),
-            "bwd_ms": kb_ms, "bwd_plain_ms": pb_ms, **bounds}
+            "bwd_ms": kb_ms, "bwd_plain_ms": pb_ms,
+            "bwd_slices": splat_v2.bwd_slices(gdata.shape[0], gdata.device),
+            "bwd_device_ms": prof["device_busy_ms_per_call"],
+            "bwd_device_ms_main": parts["main"],
+            "bwd_device_ms_slice_sum": parts["second"], **fwd,
+            **v2_bwd_bound(lo, cnt, gdata, nb, hw, hw_pad, sms, mhz)}
     log("v2 case " + json.dumps(case))
     return case
 
@@ -1844,13 +1931,9 @@ def v1_case(name: str, g, view, proj, width: int, height: int, seed: int,
         kb_ms = time_ms(lambda: splat_v1.splat_v1_bwd(*bargs), reps)
         # The SM clock while each kernel runs (launches queued for about
         # 0.3 s).
-        mhz = {}
-        for kind, fn, a, ms in (("fwd", splat_v1.splat_v1_fwd, args, k_ms),
-                                ("bwd", splat_v1.splat_v1_bwd, bargs, kb_ms)):
-            for _ in range(max(1, int(300 / max(ms, 1e-3)))):
-                fn(*a)
-            mhz[kind] = sm_clock_mhz()
-            torch.cuda.synchronize()
+        mhz = {"fwd": clock_while(lambda: splat_v1.splat_v1_fwd(*args), k_ms),
+               "bwd": clock_while(lambda: splat_v1.splat_v1_bwd(*bargs),
+                                  kb_ms)}
         sms = torch.cuda.get_device_properties(0).multi_processor_count
     # The least the card could take: the (gaussian, pixel) pairs that need
     # evaluating -- each mask-active (tile, block) pair's live rows (op >
@@ -1868,23 +1951,20 @@ def v1_case(name: str, g, view, proj, width: int, height: int, seed: int,
     # the largest of its terms, the one that decides it named; the 26-
     # (55-) flop f32 figure, which prices the products at the CUDA-core
     # rate, kept beside it. The SM clock is the one read while it ran.
-    for kind, flops, elementwise, product, nbytes in (
-            ("", V1_FWD_FLOPS_PER_PAIR, V1_FWD_ELEMENTWISE_FLOPS_PER_PAIR,
-             V1_FWD_PRODUCT_FLOPS_PER_PAIR, in_bytes + 8 * hw_pad * 4),
-            ("bwd_", V1_BWD_FLOPS_PER_PAIR, V1_BWD_ELEMENTWISE_FLOPS_PER_PAIR,
-             V1_BWD_PRODUCT_FLOPS_PER_PAIR,
-             in_bytes + 8 * hw_pad * 4 + gdata.numel() * 4)):
-        clock = mhz["bwd" if kind else "fwd"]
-        ms, term, terms = tensor_core_bound(alive_pairs, elementwise, product,
-                                            nbytes, sms, clock)
-        bounds.update({
-            f"{kind}bound_ms_{flops}flop": max(
-                1e3 * flops * alive_pairs / F32_FLOPS_PER_S,
-                1e3 * nbytes / HBM_BYTES_PER_S),
-            f"{kind}bound_ms": ms,
-            f"{kind}bound_by": "bytes" if term == "bytes" else "operations",
-            f"{kind}bound_term": term, f"{kind}bound_terms_ms": terms,
-            f"{kind}sm_clock_mhz": clock})
+    nbytes = in_bytes + 8 * hw_pad * 4
+    ms, term, terms = tensor_core_bound(
+        alive_pairs, V1_FWD_ELEMENTWISE_FLOPS_PER_PAIR,
+        V1_FWD_PRODUCT_FLOPS_PER_PAIR, nbytes, sms, mhz["fwd"])
+    bounds.update({
+        f"bound_ms_{V1_FWD_FLOPS_PER_PAIR}flop": max(
+            1e3 * V1_FWD_FLOPS_PER_PAIR * alive_pairs / F32_FLOPS_PER_S,
+            1e3 * nbytes / HBM_BYTES_PER_S),
+        "bound_ms": ms, "bound_by": "bytes" if term == "bytes" else
+        "operations", "bound_term": term, "bound_terms_ms": terms,
+        "sm_clock_mhz": mhz["fwd"]})
+    bounds.update({f"bwd_{k}": v for k, v in v1_bwd_bound(
+        mask, gdata, nb, tp, hw, hw_pad, sms, mhz["bwd"]).items()
+        if k != "alive_pairs"})
     case = {"case": name, "n_pad": gdata.shape[0], "nb": nb, "tp": tp,
             "width": width, "height": height, "tiles": mask.shape[0],
             "blocks": mask.shape[1], "active_pairs": int(active.sum()),
@@ -2005,9 +2085,15 @@ def mixed_route_check(name: str, g, view, proj, side: int, seed: int):
     against both directions on the tile grid (K9a, K9b on the forward's
     staging): sums and gradients of sum(acc * g) at compare_routes'
     tolerances, and whether the gradients came out bit for bit equal (the
-    same columns staged the same way for the same K9b)."""
+    same columns staged the same way for the same K9b). Then the bounds of
+    the route's two kernels on this view: K5's on its band staging
+    (v2_fwd_bound: its alive pairs from lo, cnt and gdata, no twin run) and
+    K9b's on the restaging (v1_bwd_bound, at the SM clock read while K9b
+    runs on a seeded N(0,1) cotangent), each beside its CUDA-event time
+    here."""
     import torch
 
+    from tpu_gaussians_torch.kernels import splat_v1, splat_v2
     from tpu_gaussians_torch.ops import splat
     from tpu_gaussians_torch.ops.common import prepare_splats
 
@@ -2027,6 +2113,24 @@ def mixed_route_check(name: str, g, view, proj, side: int, seed: int):
            "max_abs_err": errs,
            "grads_bit_identical": all(bool(torch.equal(a, b))
                                       for a, b in zip(mixed[1:], tiles[1:]))}
+    del mixed, tiles
+    hw = side * side
+    with torch.no_grad():
+        st = splat._v2_prep(s, side, side)
+        args = (st.lo, st.cnt, st.gdata, st.hw_pad, side, st.nb)
+        k5 = {"ms": time_ms(lambda: splat_v2.splat_v2_fwd(*args), 3, 1),
+              **v2_fwd_bound(st.lo, st.cnt, st.gdata, st.nb, hw, st.hw_pad)}
+        del st, args
+        st = splat._v1_prep(s, side, side)
+        g8 = torch.zeros((8, st.hw_pad), device="cuda")
+        g8[:5, :hw] = torch.randn((5, hw), generator=gen, device="cuda")
+        bargs = (st.mask, st.gdata, g8, st.hw_pad, side, st.nb, st.tp)
+        k9b_ms = time_ms(lambda: splat_v1.splat_v1_bwd(*bargs), 3, 1)
+        mhz = clock_while(lambda: splat_v1.splat_v1_bwd(*bargs), k9b_ms)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        k9b = {"ms": k9b_ms, **v1_bwd_bound(st.mask, st.gdata, st.nb, st.tp,
+                                            hw, st.hw_pad, sms, mhz)}
+    out.update(k5=k5, k9b=k9b)
     log("mixed route " + json.dumps(out))
     return out
 
@@ -2124,12 +2228,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"build {name}: {line.strip()}")
-    # K1, K2, K7a, K7b, K8a, K8b, K9a and K9b run their products on the
+    # K1, K2, K6, K7a, K7b, K8a, K8b, K9a and K9b run their products on the
     # tensor cores: their SASS holds HMMA.
     hmma = {}
-    for name in ("splat_sep_fwd", "splat_sep_bwd", "binned_sep_fwd",
-                 "binned_sep_bwd", "binned_fwd", "binned_bwd", "splat_v1_fwd",
-                 "splat_v1_bwd"):
+    for name in ("splat_sep_fwd", "splat_sep_bwd", "splat_v2_bwd",
+                 "binned_sep_fwd", "binned_sep_bwd", "binned_fwd",
+                 "binned_bwd", "splat_v1_fwd", "splat_v1_bwd"):
         hmma[name] = build.sass_count(build.library_path(name),
                                       f"{name}_kernel", "HMMA")
         log(f"build {name}: {hmma[name]} HMMA instructions in the kernel's "
@@ -2554,14 +2658,20 @@ def main() -> int:
                        launches_fit_sorted_preview=fit_s["launches"][
                            "splat_v2_fwd"],
                        launches_mixed_route=mixed_launches["splat_v2_fwd"],
-                       ms_1M_ewa_view0=v1_cases[0]["k5_ms"]))
+                       ms_1M_ewa_view0=v1_cases[0]["k5_ms"],
+                       mixed_route_500k_view0=mixed_check["k5"]))
     v2b = [{"case": c["case"], "ms": c["bwd_ms"],
             "plain_ms": c["bwd_plain_ms"], "bound_ms": c["bwd_bound_ms"],
             "bound_by": c["bwd_bound_by"],
             "max_abs_err": c["bwd_max_abs_err"]} for c in v2_cases]
+    extra = {k: {c["case"]: c[f"bwd_{k}"] for c in v2_cases} for k in (
+        "bound_term", "bound_terms_ms", "bound_ms_52flop", "sm_clock_mhz",
+        "slices", "device_ms", "device_ms_main", "device_ms_slice_sum")}
     kernels.append(row("splat_v2_bwd", "tpu_gaussians/ops/pallas/splat.py:510",
                        fit_ea["launches"]["splat_v2_bwd"], v2b, v2b[0],
-                       ms_1M_ewa_view0=v1_cases[0]["k6_ms"]))
+                       ms_1M_ewa_view0=v1_cases[0]["k6_ms"],
+                       hmma_in_sass=hmma["splat_v2_bwd"],
+                       ptxas=ptxas_lines("splat_v2_bwd"), **extra))
     for name, kind_, line in (("binned_fwd", "fwd", 135),
                               ("binned_bwd", "bwd", 164)):
         bc = [{"case": c["case"], "ms": c[f"{kind_}_ms"],
@@ -2621,6 +2731,8 @@ def main() -> int:
             "bound_ms_26flop" if name == "splat_v1_fwd" else
             "bound_ms_55flop")}
         extra["hmma_in_sass"] = hmma[name]
+        if name == "splat_v1_bwd":
+            extra["mixed_route_500k_view0"] = mixed_check["k9b"]
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/splat.py:{line}",
                            exact_launches[name], vc, vc[0],
                            launches_per_step=exact_launches[name] // calls,

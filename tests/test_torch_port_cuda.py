@@ -30,7 +30,7 @@ Tolerances:
   positive terms in another order (K8a's product on the tensor cores, TF32
   split three ways); K8a bit-identical across two launches.
 - splat_v2_bwd (K6) and binned_bwd (K8b): as K2, rtol 2e-4 and atol 2e-5
-  times the largest magnitude of the output column (K8b's two products on
+  times the largest magnitude of the output column (their two products on
   the tensor cores, TF32 split three ways); bit-identical across two
   launches.
 - EWA accumulation render gradients (K5/K6, K8a/K8b) against the plain
@@ -510,6 +510,79 @@ def test_splat_v2_bwd_kernel_matches_plain_twin(cuda, case):
     assert torch.equal(out, again)          # deterministic: no atomics
     ref = splat_v2.v2_bwd_plain(lo, cnt, gdata, g8, hw_pad, width, nb)
     assert_moments_close(out.cpu(), ref.cpu())
+
+
+def v2_bwd_edge_inputs(width, height, nb, n_blocks, ranges, n_real,
+                       seed=0):
+    """K6's inputs built directly, not through the staging: n_real general
+    conics over the frame (and 10 px past it) in K5's pre-scaled form (a'
+    = -a/2, b' = -b, c' = -c/2, featsop = feats * op), a tenth at zero
+    opacity, then padding rows (op 0, identity conic) up to n_blocks * nb;
+    band i's block range ranges[i] = (lo, cnt); an N(0,1) cotangent on every
+    row and every padded pixel, so that the kernel and its twin see the same
+    work beyond the frame."""
+    rng = np.random.default_rng(seed)
+    hw_pad = -(-width * height // splat_v2.TP2) * splat_v2.TP2
+    assert len(ranges) == hw_pad // splat_v2.TP2
+    n = n_blocks * nb
+    gd = np.zeros((n, 16), np.float32)
+    gd[:, 2] = gd[:, 4] = -0.5
+    sx, sy = rng.uniform(1.0, 8.0, (2, n_real))
+    a, c = 1.0 / sx ** 2, 1.0 / sy ** 2
+    b = rng.uniform(-0.9, 0.9, n_real) * np.sqrt(a * c)
+    op = rng.uniform(0.0, 1.0, n_real) * (rng.uniform(size=n_real) >= 0.1)
+    gd[:n_real, 0] = rng.uniform(-10, width + 10, n_real)
+    gd[:n_real, 1] = rng.uniform(-10, height + 10, n_real)
+    gd[:n_real, 2], gd[:n_real, 3], gd[:n_real, 4] = -0.5 * a, -b, -0.5 * c
+    gd[:n_real, 5] = op
+    gd[:n_real, 6:14] = rng.normal(size=(n_real, 8)) * op[:, None]
+    lo, cnt = (np.array(v, np.int32) for v in zip(*ranges))
+    g8 = rng.normal(size=(8, hw_pad)).astype(np.float32)
+    return (torch.from_numpy(lo), torch.from_numpy(cnt), torch.from_numpy(gd),
+            torch.from_numpy(g8), hw_pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 2, 4, 8, 16])
+def test_splat_v2_bwd_kernel_edges(cuda, slices):
+    """K6 against its twin at each slice count its rule picks (the n_pad
+    that gives it on this card), bit-identical across two launches, on a
+    width of 200 (bands end mid-row, row segments of no multiple of 8
+    pixels, the last band partly past the frame) with nb = 256 (two CUDA
+    blocks an nb-block): band 0's range ends in the nb-block that holds the
+    padding rows, band 2's is empty, and the blocks that no range holds
+    give zero rows."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    blocks128 = 24 if slices == 16 else -(-4 * sms // slices)
+    nb = 256
+    n_blocks = -(-blocks128 // 2)
+    n_real = n_blocks * nb - 100
+    assert splat_v2.bwd_slices(n_blocks * nb, cuda) == slices
+    ranges = [(n_blocks - 2, 2), (1, 3), (0, 0), (0, 1), (3, 2)]
+    lo, cnt, gdata, g8, hw_pad = v2_bwd_edge_inputs(
+        200, 41, nb, n_blocks, ranges, n_real, seed=slices)
+    args = (lo.to(cuda), cnt.to(cuda), gdata.to(cuda), g8.to(cuda), hw_pad,
+            200, nb)
+    before = splat_v2.launches["splat_v2_bwd"]
+    out = splat_v2.splat_v2_bwd(*args)
+    again = splat_v2.splat_v2_bwd(*args)
+    torch.cuda.synchronize()
+    assert splat_v2.launches["splat_v2_bwd"] == before + 2
+    assert torch.equal(out, again)          # deterministic: no atomics
+    ref = splat_v2.v2_bwd_plain(*args)
+    assert_moments_close(out.cpu(), ref.cpu())
+    rows = out.reshape(n_blocks, nb, 16).cpu()
+    assert not rows[:, :, [5, 14, 15]].any()
+    held = {j for l, c in ranges for j in range(l, l + c)}
+    for j in range(n_blocks):
+        assert rows[j].any() == (j in held)
+
+
+@pytest.mark.cuda
+def test_splat_v2_bwd_kernel_runs_on_tensor_cores(cuda):
+    build.build_all(["splat_v2_bwd"])
+    assert build.sass_count(build.library_path("splat_v2_bwd"),
+                            "splat_v2_bwd_kernel", "HMMA") > 0
 
 
 def _scene_grid_counts():

@@ -351,3 +351,25 @@ def test_resolve_device_turns_tf32_off_for_convolutions(monkeypatch):
     assert ttypes.resolve_device("cuda").type == "cuda"
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_fit_help_states_the_accum_binned_rule(capsys):
+    """`--help` names the rule `ops/dispatch.uses_binned_accum` applies:
+    under auto, EWA bins at n >= BINNED_MIN_N and the axis footprint
+    never; off is the dense band kernels, on the tile-binned lists."""
+    from tpu_gaussians_torch.ops.binned import BINNED_MIN_N
+    from tpu_gaussians_torch.ops.dispatch import uses_binned_accum
+
+    with pytest.raises(SystemExit):
+        tfit_cli.main(["--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    assert (f"auto = tile-binned lists for the ewa footprint at n >= "
+            f"{BINNED_MIN_N} gaussians, dense band kernels below it and "
+            "always for the axis footprint; off = dense band kernels; on = "
+            "tile-binned lists") in text
+    for footprint, n, binned in (("ewa", BINNED_MIN_N, True),
+                                 ("ewa", BINNED_MIN_N - 1, False),
+                                 ("axis", 10 ** 7, False)):
+        for mode, want in (("auto", binned), ("off", False), ("on", True)):
+            cfg = TConfig(footprint=footprint, accum_binned=mode)
+            assert uses_binned_accum(cfg, n) == want

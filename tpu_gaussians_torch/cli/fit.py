@@ -17,6 +17,7 @@ import torch
 
 from tpu_gaussians_torch.core.types import resolve_device
 from tpu_gaussians_torch.fit.trainer import fit, load_dataset, write_artifacts
+from tpu_gaussians_torch.ops.binned import BINNED_MIN_N
 from tpu_gaussians_torch.utils.config import FitConfig
 
 
@@ -78,8 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "depth-sorted alpha blending")
     ap.add_argument("--accum_binned", choices=["auto", "on", "off"],
                     default=d.accum_binned,
-                    help="accum kernels: auto/off = dense band kernels; "
-                         "on = tile-binned lists")
+                    help="accum kernels: auto = tile-binned lists for the "
+                         f"ewa footprint at n >= {BINNED_MIN_N} gaussians, "
+                         "dense band kernels below it and always for the "
+                         "axis footprint; off = dense band kernels; on = "
+                         "tile-binned lists")
     ap.add_argument("--clone_metric", choices=["opacity", "grad"],
                     default=d.clone_metric)
     ap.add_argument("--split_scale_thresh", type=float,

@@ -141,6 +141,17 @@ def v2_bwd_plain(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
     return out
 
 
+def bwd_slices(n_pad: int, device: torch.device) -> int:
+    """The pixel slices K6 splits each band into for n_pad gaussians on the
+    CUDA device `device` (csrc/splat_v2_bwd.cu:pixel_slices, from n_pad and
+    the device's SM count)."""
+    with torch.cuda.device(device):
+        slices = build.load("splat_v2_bwd").splat_v2_bwd_slices(n_pad)
+    if slices < 1:
+        raise RuntimeError(f"splat_v2_bwd: cannot read {device}'s SM count")
+    return slices
+
+
 def splat_v2_fwd(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
                  hw_pad: int, width: int, nb: int) -> torch.Tensor:
     """K5 -> acc (8, hw_pad): the CUDA kernel for CUDA tensors, the plain
@@ -166,12 +177,12 @@ def splat_v2_bwd(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
     if not build.on_cuda("splat_v2_bwd", gdata):
         return v2_bwd_plain(lo, cnt, gdata, g8, hw_pad, width, nb)
     n_pad = gdata.shape[0]
-    # The kernel's partial rows per pixel segment, summed in segment order
-    # by its second pass.
-    part = torch.empty((build.load("splat_v2_bwd").splat_v2_bwd_split(),
-                        n_pad, GD_ROWS), dtype=torch.float32,
-                       device=gdata.device)
+    slices = bwd_slices(n_pad, gdata.device)
     out = torch.empty_like(gdata)
+    # The kernel's rows per pixel slice, summed in slice order by its second
+    # pass; with one slice it writes out itself.
+    part = out if slices == 1 else torch.empty(
+        (slices, n_pad, GD_ROWS), dtype=torch.float32, device=gdata.device)
     build.launch("splat_v2_bwd", (lo, cnt, gdata, g8, part, out),
                  lo.shape[0], width, nb, n_pad)
     launches["splat_v2_bwd"] += 1
