@@ -11,9 +11,9 @@ Phases, each of which fails the run by raising:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc for every kernel source, all started together; nvcc's
               seconds and ptxas' register and shared-memory lines; the count
-              of HMMA (tensor-core) instructions in K1's, K2's, K6's, K7a's,
-              K7b's, K8a's, K8b's, K9a's and K9b's SASS (cuobjdump), none of
-              which may be 0
+              of HMMA (tensor-core) instructions in K1's, K2's, K5's, K6's,
+              K7a's, K7b's, K8a's, K8b's, K9a's and K9b's SASS (cuobjdump),
+              none of which may be 0
   3. scene    a synthetic 100,000-gaussian scene from --seed, written as a
               reference-schema npz (means U(-1,1)^3, scales U(0.005,0.03),
               colors U(0,1), opacities U(0.2,0.9))
@@ -101,12 +101,13 @@ Phases, each of which fails the run by raising:
               (capacity 3000: auto -> accum, dense): the checks of phase 7,
               K5 launched exactly 901 times (6 per step and the preview), K6
               (splat_v2_bwd) 900, no other kernel; a profile of its steps;
-              K5 and K6 against their twins on the fitted model, K6 twice
-              (bit-identical) with its pixel slices, device time
-              (torch.profiler; its main kernel and slice sum apart) and
-              bound on this card (its two products on the tensor cores, the
-              SM clock read while it runs, the deciding term named) beside
-              the 52-flop f32 one, as on every K5/K6 case
+              K5 and K6 against their twins on the fitted model, each twice
+              (bit-identical), K5 with its range slices and K6 with its
+              pixel slices, each one's device time (torch.profiler; its
+              main kernel and slice sum apart) and bound on this card (its
+              products on the tensor cores, the SM clock read while it
+              runs, the deciding term named) beside the 25- and 52-flop f32
+              ones, as on every K5/K6 case
  14. fit ewa binned  the recipe plus --footprint ewa --max_gaussians 16384
               --render_mode accum: the checks of phase 7, K8a launched
               exactly 901 times and K8b 900, no other kernel, no pair
@@ -159,7 +160,7 @@ Phases, each of which fails the run by raising:
               times per step each and no other kernel; view 0's sums and
               gradients against both directions on the tile grid; K5's
               bound on view 0's band staging and K9b's on its restaging
-              (at the SM clock read while K9b runs), each beside its
+              (each at the SM clock read while it runs), each beside its
               CUDA-event time there
  20. report   one `kernels` JSON line, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
@@ -169,11 +170,11 @@ K8b and K9b to rtol 2e-4 and atol 2e-5 times the largest magnitude of their
 output column (at least 1; their moments are sums of signed terms that
 cancel); K4 to rtol 2e-3 and atol 2e-4 times the largest magnitude of its
 output column (the JAX suite's tolerance for the sorted backward: ctg - P_i
-cancels and is divided by 1 - a); K1, K2, K3, K4, K6, K7a, K7b, K8a, K8b,
-K9a and K9b are bit-identical across two launches (K1, K2, K6, K7a, K7b,
-K8a, K8b, K9a and K9b run their products on the tensor cores, in TF32 split
-three ways, and sum in a fixed order; K3 composites each pixel in slot
-order and culls only pairs whose alpha is under the cutoff). K9a
+cancels and is divided by 1 - a); K1, K2, K3, K4, K5, K6, K7a, K7b, K8a,
+K8b, K9a and K9b are bit-identical across two launches (K1, K2, K5, K6,
+K7a, K7b, K8a, K8b, K9a and K9b run their products on the tensor cores, in
+TF32 split three ways, and sum in a fixed order; K3 composites each pixel
+in slot order and culls only pairs whose alpha is under the cutoff). K9a
 against K5 and binned against dense renders: rtol 1e-4 / atol 1e-5;
 gradients through K9 against K5/K6, and the mixed route's against the tile
 grid's: rtol 2e-3 and atol 2e-4 times the largest magnitude. Kernel times
@@ -236,8 +237,14 @@ SEP_BWD_ELEMENTWISE_FLOPS_PER_COLUMN = 6
 # moment sums (6); g_feat (8 multiply-adds); T's update. The exp is not
 # counted.
 SORTED_BWD_FLOPS_PER_EVAL = {"ewa": 66, "axis": 60}
-# f32 operations per (gaussian, pixel) pair in K5 (csrc/splat_v2_fwd.cu):
-# dx, dy, the Horner exponent (7) and 8 multiply-adds; the exp not counted.
+# f32 operations per (gaussian, pixel) pair in K5's function with every
+# term paid per pair and the product on the CUDA cores: dx, dy, the Horner
+# exponent (7) and 8 multiply-adds; the exp not counted. K5 runs its
+# product on the tensor cores (csrc/splat_v2_fwd.cu, as the TPU did on its
+# matrix unit): its bound is v2_fwd_bound's, on K9a's terms per pair (the
+# same per-pair function with op folded into featsop: the product's 16
+# flops, 5 elementwise, one exp), and this f32 figure is printed beside it
+# (bound_ms_25flop).
 V2_FWD_FLOPS_PER_PAIR = 25
 # Per (gaussian, pixel) pair of K6's function with every term paid per
 # pair and the products on the CUDA cores: dx, dy, the Horner exponent
@@ -325,7 +332,7 @@ PORT_KERNELS = {f"{k}_kernel" for k in (
     "sorted_fwd", "sorted_bwd", "splat_sep_fwd", "splat_sep_bwd",
     "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd",
     "binned_sep_fwd", "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd",
-    "slice_sum", "segment_sum", "splat_sep_bwd_sum")}
+    "slice_sum", "segment_sum", "splat_sep_bwd_sum", "splat_v2_fwd_sum")}
 FIT_ARGS = ["--targets_dir", "assets/example_scene", "--camera_npz",
             "assets/example_scene/cameras.npz", "--iters", "150", "--use_sh",
             "--num_gaussians", "800"]
@@ -422,16 +429,28 @@ def v2_alive_pairs(lo, cnt, gdata, nb: int, hw: int) -> int:
     return int(((live_csum[lo64 + cnt64] - live_csum[lo64]) * band_px).sum())
 
 
-def v2_fwd_bound(lo, cnt, gdata, nb: int, hw: int, hw_pad: int) -> dict:
-    """K5's bound: its alive pairs (v2_alive_pairs) at
-    V2_FWD_FLOPS_PER_PAIR f32 operations each, against gdata, lo and cnt
-    read once and the (8, hw_pad) sums written once."""
+def v2_fwd_bound(lo, cnt, gdata, nb: int, hw: int, hw_pad: int, sms: int,
+                 mhz: float) -> dict:
+    """K5's bound on this card for its alive pairs (v2_alive_pairs), for a
+    kernel that runs its product on the tensor cores (csrc/splat_v2_fwd.cu
+    does, as the TPU did on its matrix unit): the largest of
+    tensor_core_bound's terms at the SM clock `mhz`, on K9a's per-pair
+    terms (the product's 16 flops, 5 elementwise with the row terms paid
+    once per row, one exp), against gdata, lo and cnt read once and the
+    (8, hw_pad) sums written once. The 25-flop f32 figure beside it. The
+    slice partials are K5's design, not its function, and stay out."""
     pairs = v2_alive_pairs(lo, cnt, gdata, nb, hw)
-    ops_ms = 1e3 * V2_FWD_FLOPS_PER_PAIR * pairs / F32_FLOPS_PER_S
-    bytes_ms = 1e3 * (gdata.numel() * 4 + 2 * lo.numel() * 4
-                      + 8 * hw_pad * 4) / HBM_BYTES_PER_S
-    return {"alive_pairs": pairs, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    nbytes = gdata.numel() * 4 + 2 * lo.numel() * 4 + 8 * hw_pad * 4
+    ms, term, terms = tensor_core_bound(
+        pairs, V1_FWD_ELEMENTWISE_FLOPS_PER_PAIR,
+        V1_FWD_PRODUCT_FLOPS_PER_PAIR, nbytes, sms, mhz)
+    return {"alive_pairs": pairs, "bound_ms": ms,
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "bound_terms_ms": terms,
+            "bound_ms_25flop": max(
+                1e3 * V2_FWD_FLOPS_PER_PAIR * pairs / F32_FLOPS_PER_S,
+                1e3 * nbytes / HBM_BYTES_PER_S),
+            "sm_clock_mhz": mhz}
 
 
 def v2_bwd_bound(lo, cnt, gdata, nb: int, hw: int, hw_pad: int, sms: int,
@@ -1457,10 +1476,11 @@ def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
     """K5, and K6 on a seeded N(0,1) cotangent (zero beyond the frame and in
     rows 5-7, as the backward stages it), against their plain twins on one
     view's EWA accumulation inputs, staged by the render path's own
-    ops/splat staging: errors, K6's determinism, CUDA-event times, K6's
-    pixel slices and device ms per call (its main kernel and slice sum
-    apart), and bounds (v2_fwd_bound; v2_bwd_bound at the SM clock read
-    while K6 runs). Raises on a disagreement."""
+    ops/splat staging: errors, both kernels' determinism, CUDA-event
+    times, K5's range slices and K6's pixel slices, each one's device ms
+    per call (its main kernel and slice sum apart), and bounds
+    (v2_fwd_bound and v2_bwd_bound, each at the SM clock read while it
+    runs). Raises on a disagreement."""
     import torch
 
     from tpu_gaussians_torch.kernels import splat_v2
@@ -1474,6 +1494,7 @@ def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
                                                     height, width)
         args = (lo, cnt, gdata, hw_pad, width, nb)
         acc = splat_v2.splat_v2_fwd(*args)
+        acc_again = splat_v2.splat_v2_fwd(*args)
         ref = splat_v2.v2_fwd_plain(*args)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         g8 = torch.zeros((8, hw_pad), device="cuda")
@@ -1484,6 +1505,9 @@ def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
         ref_b = splat_v2.v2_bwd_plain(*bargs)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(acc).all()), f"{name}: non-finite K5 sums")
+        check(bool(torch.equal(acc, acc_again)),
+              f"{name}: K5 not deterministic")
+        del acc_again
         err = float((acc - ref).abs().max())
         check(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
               f"{name}: K5 disagrees with its twin (max abs err {err})")
@@ -1497,6 +1521,10 @@ def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
               f"values (max abs err {err_b})")
         k_ms = time_ms(lambda: splat_v2.splat_v2_fwd(*args), reps)
         p_ms = time_ms(lambda: splat_v2.v2_fwd_plain(*args), 5, 1)
+        fprof = profile_calls(lambda i: splat_v2.splat_v2_fwd(*args), reps)
+        fparts = device_split(fprof, "splat_v2_fwd_kernel",
+                              "splat_v2_fwd_sum_kernel")
+        fmhz = clock_while(lambda: splat_v2.splat_v2_fwd(*args), k_ms)
         kb_ms = time_ms(lambda: splat_v2.splat_v2_bwd(*bargs), reps)
         pb_ms = time_ms(lambda: splat_v2.v2_bwd_plain(*bargs), 5, 1)
         prof = profile_calls(lambda i: splat_v2.splat_v2_bwd(*bargs), reps)
@@ -1508,13 +1536,19 @@ def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
     # run: every row of the range (padding and dead capacity rows included)
     # on every pixel of the band.
     pairs = int(cnt.to(torch.int64).sum()) * nb * splat_v2.TP2
-    fwd = v2_fwd_bound(lo, cnt, gdata, nb, hw, hw_pad)
+    fwd = v2_fwd_bound(lo, cnt, gdata, nb, hw, hw_pad, sms, fmhz)
     case = {"case": name, "n_pad": gdata.shape[0], "nb": nb,
             "width": width, "height": height, "bands": lo.shape[0],
             "pairs_evaluated": pairs, "alive_pairs": fwd.pop("alive_pairs"),
             "alive": int((gdata[:, 5] > 0).sum()), "max_abs_err": err,
             "max_abs_ref": float(ref.abs().max()),
-            "ms": k_ms, "plain_ms": p_ms, "bwd_max_abs_err": err_b,
+            "ms": k_ms, "plain_ms": p_ms,
+            "slices": splat_v2.fwd_slices(lo.shape[0], gdata.shape[0],
+                                          gdata.device),
+            "device_ms": fprof["device_busy_ms_per_call"],
+            "device_ms_main": fparts["main"],
+            "device_ms_slice_sum": fparts["second"],
+            "bwd_max_abs_err": err_b,
             "bwd_max_abs_ref": float(ref_b.abs().max()),
             "bwd_ms": kb_ms, "bwd_plain_ms": pb_ms,
             "bwd_slices": splat_v2.bwd_slices(gdata.shape[0], gdata.device),
@@ -2088,9 +2122,9 @@ def mixed_route_check(name: str, g, view, proj, side: int, seed: int):
     same columns staged the same way for the same K9b). Then the bounds of
     the route's two kernels on this view: K5's on its band staging
     (v2_fwd_bound: its alive pairs from lo, cnt and gdata, no twin run) and
-    K9b's on the restaging (v1_bwd_bound, at the SM clock read while K9b
-    runs on a seeded N(0,1) cotangent), each beside its CUDA-event time
-    here."""
+    K9b's on the restaging (v1_bwd_bound, on a seeded N(0,1) cotangent),
+    each at the SM clock read while it runs and beside its CUDA-event time
+    here, K5's with its slices."""
     import torch
 
     from tpu_gaussians_torch.kernels import splat_v1, splat_v2
@@ -2115,11 +2149,16 @@ def mixed_route_check(name: str, g, view, proj, side: int, seed: int):
                                       for a, b in zip(mixed[1:], tiles[1:]))}
     del mixed, tiles
     hw = side * side
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     with torch.no_grad():
         st = splat._v2_prep(s, side, side)
         args = (st.lo, st.cnt, st.gdata, st.hw_pad, side, st.nb)
-        k5 = {"ms": time_ms(lambda: splat_v2.splat_v2_fwd(*args), 3, 1),
-              **v2_fwd_bound(st.lo, st.cnt, st.gdata, st.nb, hw, st.hw_pad)}
+        k5_ms = time_ms(lambda: splat_v2.splat_v2_fwd(*args), 3, 1)
+        mhz = clock_while(lambda: splat_v2.splat_v2_fwd(*args), k5_ms)
+        k5 = {"ms": k5_ms, "slices": splat_v2.fwd_slices(
+                  st.lo.shape[0], st.gdata.shape[0], st.gdata.device),
+              **v2_fwd_bound(st.lo, st.cnt, st.gdata, st.nb, hw, st.hw_pad,
+                             sms, mhz)}
         del st, args
         st = splat._v1_prep(s, side, side)
         g8 = torch.zeros((8, st.hw_pad), device="cuda")
@@ -2127,7 +2166,6 @@ def mixed_route_check(name: str, g, view, proj, side: int, seed: int):
         bargs = (st.mask, st.gdata, g8, st.hw_pad, side, st.nb, st.tp)
         k9b_ms = time_ms(lambda: splat_v1.splat_v1_bwd(*bargs), 3, 1)
         mhz = clock_while(lambda: splat_v1.splat_v1_bwd(*bargs), k9b_ms)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
         k9b = {"ms": k9b_ms, **v1_bwd_bound(st.mask, st.gdata, st.nb, st.tp,
                                             hw, st.hw_pad, sms, mhz)}
     out.update(k5=k5, k9b=k9b)
@@ -2228,10 +2266,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"build {name}: {line.strip()}")
-    # K1, K2, K6, K7a, K7b, K8a, K8b, K9a and K9b run their products on the
-    # tensor cores: their SASS holds HMMA.
+    # K1, K2, K5, K6, K7a, K7b, K8a, K8b, K9a and K9b run their products on
+    # the tensor cores: their SASS holds HMMA.
     hmma = {}
-    for name in ("splat_sep_fwd", "splat_sep_bwd", "splat_v2_bwd",
+    for name in ("splat_sep_fwd", "splat_sep_bwd", "splat_v2_fwd",
+                 "splat_v2_bwd",
                  "binned_sep_fwd", "binned_sep_bwd", "binned_fwd",
                  "binned_bwd", "splat_v1_fwd", "splat_v1_bwd"):
         hmma[name] = build.sass_count(build.library_path(name),
@@ -2653,13 +2692,22 @@ def main() -> int:
                            grad_errs.values()),
                        blocks={c["case"]: [c["blocks"], c["tiles"]]
                                for c in bwd_cases}))
+    extra = {k: {c["case"]: c[k] for c in v2_cases} for k in (
+        "bound_term", "bound_terms_ms", "bound_ms_25flop", "sm_clock_mhz",
+        "slices", "device_ms", "device_ms_main", "device_ms_slice_sum")}
     kernels.append(row("splat_v2_fwd", "tpu_gaussians/ops/pallas/splat.py:452",
                        fit_ea["launches"]["splat_v2_fwd"], v2_cases, v2_main,
                        launches_fit_sorted_preview=fit_s["launches"][
                            "splat_v2_fwd"],
                        launches_mixed_route=mixed_launches["splat_v2_fwd"],
                        ms_1M_ewa_view0=v1_cases[0]["k5_ms"],
-                       mixed_route_500k_view0=mixed_check["k5"]))
+                       # K5's sums against K9a's at 1M, off its route (one
+                       # running f32 sum a pixel was 0.0089 off there).
+                       k5_vs_k9a_max_abs_err_1M_ewa_view0=v1_cases[0][
+                           "k5_vs_k9a_max_abs_err"],
+                       mixed_route_500k_view0=mixed_check["k5"],
+                       hmma_in_sass=hmma["splat_v2_fwd"],
+                       ptxas=ptxas_lines("splat_v2_fwd"), **extra))
     v2b = [{"case": c["case"], "ms": c["bwd_ms"],
             "plain_ms": c["bwd_plain_ms"], "bound_ms": c["bwd_bound_ms"],
             "bound_by": c["bwd_bound_by"],

@@ -27,8 +27,8 @@ Tolerances:
   and the kernel updates T per gaussian where the twin does per 128-slot
   sub-block.
 - splat_v2_fwd (K5) and binned_fwd (K8a): rtol 1e-5 / atol 1e-5, sums of
-  positive terms in another order (K8a's product on the tensor cores, TF32
-  split three ways); K8a bit-identical across two launches.
+  positive terms in another order (their products on the tensor cores,
+  TF32 split three ways); both bit-identical across two launches.
 - splat_v2_bwd (K6) and binned_bwd (K8b): as K2, rtol 2e-4 and atol 2e-5
   times the largest magnitude of the output column (their two products on
   the tensor cores, TF32 split three ways); bit-identical across two
@@ -479,8 +479,10 @@ def test_splat_v2_kernel_matches_plain_twin(cuda, case):
         assert n % nb != 0
     before = splat_v2.launches["splat_v2_fwd"]
     acc = splat_v2.splat_v2_fwd(lo, cnt, gdata, hw_pad, width, nb)
+    again = splat_v2.splat_v2_fwd(lo, cnt, gdata, hw_pad, width, nb)
     torch.cuda.synchronize()
-    assert splat_v2.launches["splat_v2_fwd"] == before + 1
+    assert splat_v2.launches["splat_v2_fwd"] == before + 2
+    assert torch.equal(acc, again)          # deterministic: no atomics
     ref = splat_v2.v2_fwd_plain(lo, cnt, gdata, hw_pad, width, nb)
     np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
@@ -576,6 +578,83 @@ def test_splat_v2_bwd_kernel_edges(cuda, slices):
     held = {j for l, c in ranges for j in range(l, l + c)}
     for j in range(n_blocks):
         assert rows[j].any() == (j in held)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 2, 4, 8, 12, 16])
+def test_splat_v2_fwd_kernel_edges(cuda, slices):
+    """K5 against its twin at slice counts its rule picks (the band count
+    and n_pad that give it on this card: 12 is 16 trimmed to what 24
+    chunks fill, as on the flagship), bit-identical across two launches,
+    on a width of 200 (warps straddle rows, bands end mid-row, the last
+    band partly past the frame) with nb = 256: band 0's range ends in the
+    nb-block that holds the padding rows, band 2's is empty (its columns
+    exactly zero), band 4's is the whole of gdata, and the rest are seeded
+    ranges of 1 to 6 nb-blocks, some shorter than the slice count in
+    128-row chunks."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_bands = 5 if slices >= 12 else -(-6 * sms // (4 * slices))
+    height = n_bands * splat_v2.TP2 // 200
+    nb, n_blocks = 256, 12 if slices == 12 else 8
+    rng = np.random.default_rng(slices)
+    ranges = [(n_blocks - 2, 2), (1, 3), (0, 0), (0, 1), (0, n_blocks)]
+    for _ in range(n_bands - 5):
+        c = int(rng.integers(1, 7))
+        ranges.append((int(rng.integers(0, n_blocks - c + 1)), c))
+    lo, cnt, gdata, _, hw_pad = v2_bwd_edge_inputs(
+        200, height, nb, n_blocks, ranges, n_blocks * nb - 100, seed=slices)
+    assert hw_pad == n_bands * splat_v2.TP2
+    assert splat_v2.fwd_slices(n_bands, n_blocks * nb, gdata.to(
+        cuda).device) == slices
+    args = (lo.to(cuda), cnt.to(cuda), gdata.to(cuda), hw_pad, 200, nb)
+    before = splat_v2.launches["splat_v2_fwd"]
+    acc = splat_v2.splat_v2_fwd(*args)
+    again = splat_v2.splat_v2_fwd(*args)
+    torch.cuda.synchronize()
+    assert splat_v2.launches["splat_v2_fwd"] == before + 2
+    assert torch.equal(acc, again)          # deterministic: no atomics
+    ref = splat_v2.v2_fwd_plain(*args)
+    np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert not acc[:, 2 * splat_v2.TP2:3 * splat_v2.TP2].any()
+    assert acc[:, :200 * height].abs().amax(dim=1)[:5].gt(0).all()
+
+
+@pytest.mark.cuda
+def test_splat_v2_fwd_kernel_skips_dead_rows(cuda):
+    """K5 against its twin, bit-identical across two launches, where most
+    rows are dead capacity as in a fit (op 0, all at one screen point, so
+    the y-sort puts them side by side inside the band ranges): whole
+    8-row steps of zero featsop, which the kernel skips, lie inside the
+    ranges."""
+    n, height, width = 3000, 128, 128
+    cols = list(synthetic_splats(n, height, width, seed=6))
+    rng = np.random.default_rng(7)
+    cols[3] = (rng.uniform(-0.9, 0.9, n) * np.sqrt(cols[2] * cols[4])
+               ).astype(np.float32)
+    cols[0][800:], cols[1][800:], cols[5][800:] = 64.0, 64.0, 0.0
+    lo, cnt, gdata, nb, hw_pad = tsplat._v2_prep(
+        tsplat.y_sorted(splat_inputs(cols, cuda)), height, width)
+    dead = ~gdata[:, 6:14].reshape(-1, 8, 8).any(dim=(1, 2))
+    held = torch.zeros_like(dead)
+    for l, c in zip(lo.tolist(), cnt.tolist()):
+        held[l * nb // 8:(l + c) * nb // 8] = True
+    assert int((dead & held).sum()) > 100
+    args = (lo, cnt, gdata, hw_pad, width, nb)
+    acc = splat_v2.splat_v2_fwd(*args)
+    again = splat_v2.splat_v2_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, again)          # deterministic: no atomics
+    ref = splat_v2.v2_fwd_plain(*args)
+    np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_splat_v2_fwd_kernel_runs_on_tensor_cores(cuda):
+    build.build_all(["splat_v2_fwd"])
+    assert build.sass_count(build.library_path("splat_v2_fwd"),
+                            "splat_v2_fwd_kernel", "HMMA") > 0
 
 
 @pytest.mark.cuda

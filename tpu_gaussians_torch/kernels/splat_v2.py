@@ -28,6 +28,8 @@ range holds the gaussian, where with x = exp(...) as above,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tpu_gaussians_torch.kernels import build
@@ -152,6 +154,20 @@ def bwd_slices(n_pad: int, device: torch.device) -> int:
     return slices
 
 
+@functools.lru_cache(maxsize=None)
+def fwd_slices(n_bands: int, n_pad: int, device: torch.device) -> int:
+    """The slices K5 splits each band's gaussian range into for these shapes
+    on the CUDA device `device` (csrc/splat_v2_fwd.cu:band_slices, from
+    n_bands, n_pad and the device's SM count). Host values only: no
+    device-to-host copy."""
+    with torch.cuda.device(device):
+        slices = build.load("splat_v2_fwd").splat_v2_fwd_slices(n_bands,
+                                                                n_pad)
+    if slices < 1:
+        raise RuntimeError(f"splat_v2_fwd: cannot read {device}'s SM count")
+    return slices
+
+
 def splat_v2_fwd(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
                  hw_pad: int, width: int, nb: int) -> torch.Tensor:
     """K5 -> acc (8, hw_pad): the CUDA kernel for CUDA tensors, the plain
@@ -159,10 +175,16 @@ def splat_v2_fwd(lo: torch.Tensor, cnt: torch.Tensor, gdata: torch.Tensor,
     _check(lo, cnt, gdata, hw_pad, width, nb)
     if not build.on_cuda("splat_v2_fwd", gdata):
         return v2_fwd_plain(lo, cnt, gdata, hw_pad, width, nb)
+    n_bands, n_pad = lo.shape[0], gdata.shape[0]
+    slices = fwd_slices(n_bands, n_pad, gdata.device)
     out = torch.empty((FEAT_PAD, hw_pad), dtype=torch.float32,
                       device=gdata.device)
-    build.launch("splat_v2_fwd", (lo, cnt, gdata, out), lo.shape[0], width,
-                 nb)
+    # The slices' partial planes, which the kernel's second pass adds in
+    # slice order; with one slice the kernel writes out itself.
+    part = out if slices == 1 else torch.empty(
+        (slices, FEAT_PAD, hw_pad), dtype=torch.float32, device=gdata.device)
+    build.launch("splat_v2_fwd", (lo, cnt, gdata, part, out), n_bands, width,
+                 nb, n_pad)
     launches["splat_v2_fwd"] += 1
     return out
 

@@ -1,6 +1,7 @@
 """The shared body of the single-kernel probes `tools/ab_k1.py`,
-`tools/ab_k2.py`, `tools/ab_k3.py`, `tools/ab_k6.py`, `tools/ab_k7a.py`,
-`tools/ab_k7b.py`, `tools/ab_k8a.py` and `tools/ab_k8b.py`: build this
+`tools/ab_k2.py`, `tools/ab_k3.py`, `tools/ab_k5.py`, `tools/ab_k6.py`,
+`tools/ab_k7a.py`, `tools/ab_k7b.py`, `tools/ab_k8a.py` and
+`tools/ab_k8b.py`: build this
 tree's source of one kernel beside other sources of it, hold every build
 against the plain twin and against itself, and time the builds in turns.
 
