@@ -55,6 +55,26 @@ Phases, each of which fails the run by raising:
               and partial bytes, and the products alone through cuBLAS f32
               torch.bmm on factors formed beforehand (K1's one call, K2's
               two: a yardstick the port never calls)
+  7b. colmap_fit  the COLMAP workflow at the flagship's width: a COLMAP
+              sparse model (PINHOLE, binary and text) of the example scene's
+              rig with 800 SfM points (a seeded sample of phase 7's fitted
+              centres, noise 2% of their extent, their colours);
+              cli.import_colmap --init_out (its cameras.npz within 1e-5 of
+              the rig, the text model's outputs equal to the binary one's);
+              three cli.fit runs from its init_points.npz with the flagship
+              recipe and --checkpoint_every 50 (150 iterations unbroken, 50,
+              then --resume to 150): the resume printed, metrics.jsonl steps
+              1-150, checkpoints 50, 100 and 150, the resumed parameters
+              within rtol 1e-5 / atol 1e-6 of the unbroken ones (both at
+              their checkpoint 150), loss falling, N growing at 80, K1 and K2
+              launched exactly 6 times a step (K1 once more, the preview)
+              and no other kernel; checkpoint save and restore ms and bytes;
+              cli.eval on the card and with --device cpu through the twins
+              (|dPSNR| <= 0.01 dB, |dSSIM| <= 1e-4, |dL1| <= 1e-5 a view),
+              its device ms (CUDA events); cli.convert to ply and back, the
+              fields at tests/test_ply.py's tolerances, the ply evaluated on
+              the card and rendered against the fitted model (dc clamped)
+              within atol 1e-4
   8. scale    100,000 alive gaussians (the scene generator of phase 3), 4
               orbit views at 512x512 (R = 32, 16 bands), random targets from
               --seed: 10 train steps timed with CUDA events, a profile, and
@@ -180,9 +200,10 @@ gradients through K9 against K5/K6, and the mixed route's against the tile
 grid's: rtol 2e-3 and atol 2e-4 times the largest magnitude. Kernel times
 are CUDA-event medians of 20 after warm-up (twins: of 5; at 1M, kernels of
 5 and twins of 1). The launch counters are set to 0 just before each main
-path (phases 4-5 for serving, the cli.fit.main calls of phases 7, 9, 13, 14
-and 15 and the train steps of phases 17 and 19 for training) and read just
-after: every kernel of the path must have launched there. It exits non-zero, printing no result,
+path (phases 4-5 for serving, the cli.fit.main calls of phases 7, 7b, 9,
+13, 14 and 15 and the train steps of phases 17 and 19 for training, and
+7b's cli.eval calls) and read just after: every kernel of the path must
+have launched there. It exits non-zero, printing no result,
 without a CUDA device or outside a checkout.
 """
 
@@ -342,14 +363,18 @@ EWA_BINNED_FIT_ARGS = ["--footprint", "ewa", "--max_gaussians", "16384",
                        "--render_mode", "accum"]
 AXIS_BINNED_FIT_ARGS = ["--accum_binned", "on"]
 
-# A torch.profiler window late in a long run can keep no launch at all of
-# a kernel that ran in it (one on an H100 kept 0 kernel events of ten K4
-# calls, where the window before it and the run before it kept them): the
-# helpers that read a kernel's launches from a trace take such a window
-# again, at most this many times in all, after PROFILE_RETRY_S seconds,
-# and say so in the log.
+# A torch.profiler window keeps a kernel event only if the event falls
+# inside the window by the profiler's clock, and on an H100 that clock can
+# be off by more than a short wait: minutes into a process, a window of ten
+# launches with 0.2 s of host sleep at both ends often keeps none of them,
+# where one with 2 s keeps all ten (tools/profiler_window_probe.py).
+# launched_blocks, whose check needs an event, waits PROFILE_PAD_S at both
+# ends; the helpers that read a kernel's launches from a trace take a window
+# that kept none again, at most PROFILE_TRIES windows in all, waiting
+# PROFILE_PAD_S, and say so on both output streams.
 PROFILE_TRIES = 3
-PROFILE_RETRY_S = 1.0
+PROFILE_PAD_S = 2.0
+PROFILE_SHORT_PAD_S = 0.2
 
 # K3's keys beside its all-pairs bound in the kernels line.
 K3_LIVE_KEYS = ("blocks", "device_launches_traced", "composited_pairs",
@@ -364,6 +389,13 @@ def check(cond: bool, msg: str) -> None:
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def warn(msg: str) -> None:
+    """log(msg), and the same line on standard error, whose tail a
+    failed run's report keeps."""
+    log(msg)
+    print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -738,12 +770,12 @@ def sorted_fwd_device(k3, calls: int):
     calls of k3 (profile_calls: late in a run the trace can miss launches,
     so the time is per launch it kept)."""
     for attempt in range(1, PROFILE_TRIES + 1):
-        port = profile_calls(lambda i: k3(), calls)["port_kernels"]
+        pad = PROFILE_SHORT_PAD_S if attempt == 1 else PROFILE_PAD_S
+        port = profile_calls(lambda i: k3(), calls, pad)["port_kernels"]
         if "sorted_fwd_kernel" in port or attempt == PROFILE_TRIES:
             break
-        log(f"profile: window {attempt} kept no launch of sorted_fwd_kernel; "
-            "tracing again")
-        time.sleep(PROFILE_RETRY_S)
+        warn(f"profile: window {attempt} kept no launch of "
+             "sorted_fwd_kernel; tracing again")
     check("sorted_fwd_kernel" in port, f"{PROFILE_TRIES} profiler windows "
           f"of {calls} K3 calls kept no launch of sorted_fwd_kernel")
     ms, per_call = port["sorted_fwd_kernel"]
@@ -818,7 +850,7 @@ def kernel_case(name, g, width, height, knobs, reps):
     return case
 
 
-def profile_calls(fn, calls: int) -> dict:
+def profile_calls(fn, calls: int, pad: float = PROFILE_SHORT_PAD_S) -> dict:
     """Device time per call by CUDA kernel, from torch.profiler over
     `calls` back-to-back calls of fn(i); the device's busy share of the
     wall time (the profiler's own host overhead included); and the torch
@@ -833,15 +865,15 @@ def profile_calls(fn, calls: int) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # Late in a long process the trace can miss the first or last
-        # kernels of a window (as in launched_blocks): wait at both ends.
-        time.sleep(0.2)
+        # The trace can miss the first or last kernels of a window
+        # (PROFILE_PAD_S): wait `pad` s at both ends.
+        time.sleep(pad)
         t0 = time.perf_counter()
         for i in range(calls):
             fn(i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / calls
-        time.sleep(0.2)
+        time.sleep(pad)
     rows = [{"kernel": e.key[:90],
              "ms_per_call": e.self_device_time_total / 1e3 / calls,
              "calls_per_call": e.count / calls}
@@ -896,14 +928,13 @@ def launched_blocks(fn, kernel: str) -> int:
             trace = Path(tmp) / "trace.json"
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                # Late in a long process the trace can miss the first or
-                # last kernels of a session: wait at both ends, launch ten
-                # times.
-                time.sleep(0.2)
+                # The trace can miss the kernels near a window's ends
+                # (PROFILE_PAD_S): wait at both ends, launch ten times.
+                time.sleep(PROFILE_PAD_S)
                 for _ in range(10):
                     fn()
                     torch.cuda.synchronize()
-                time.sleep(0.2)
+                time.sleep(PROFILE_PAD_S)
             prof.export_chrome_trace(str(trace))
             events = json.loads(trace.read_text())["traceEvents"]
         kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -911,14 +942,15 @@ def launched_blocks(fn, kernel: str) -> int:
                  if kernel in e.get("name", "")}
         if grids or attempt == PROFILE_TRIES:
             break
-        log(f"launched_blocks: window {attempt} kept no launch of {kernel} "
-            f"({len(kernels)} kernel and "
-            f"{sum(e.get('cat') == 'cuda_runtime' for e in events)} runtime "
-            "events); tracing again")
-        time.sleep(PROFILE_RETRY_S)
+        warn(f"launched_blocks: window {attempt} kept no launch of "
+             f"{kernel} ({len(kernels)} kernel and "
+             f"{sum(e.get('cat') == 'cuda_runtime' for e in events)} runtime "
+             "events); tracing again")
     check(len(grids) == 1, f"grids {grids} of {kernel} in a trace of "
           f"{len(kernels)} kernel events "
-          f"{sorted({e.get('name', '')[:60] for e in kernels})[:4]}")
+          f"{sorted({e.get('name', '')[:60] for e in kernels})[:4]} and "
+          f"{sum(e.get('cat') == 'cuda_runtime' for e in events)} runtime "
+          f"events, after {attempt} windows")
     x, y, z = grids.pop()
     return x * y * z
 
@@ -2215,6 +2247,321 @@ def binned_dense_check(name: str, g, c, side: int, footprint: str) -> dict:
     return out
 
 
+def rotmat_to_qvec(rot):
+    """COLMAP's (w, x, y, z) quaternion of a rotation matrix (Shepperd's
+    method through the symmetric 4x4 eigenproblem; w >= 0)."""
+    import numpy as np
+
+    r = rot
+    k = np.array([
+        [r[0, 0] - r[1, 1] - r[2, 2], r[1, 0] + r[0, 1],
+         r[2, 0] + r[0, 2], r[2, 1] - r[1, 2]],
+        [r[1, 0] + r[0, 1], r[1, 1] - r[0, 0] - r[2, 2],
+         r[2, 1] + r[1, 2], r[0, 2] - r[2, 0]],
+        [r[2, 0] + r[0, 2], r[2, 1] + r[1, 2],
+         r[2, 2] - r[0, 0] - r[1, 1], r[1, 0] - r[0, 1]],
+        [r[2, 1] - r[1, 2], r[0, 2] - r[2, 0],
+         r[1, 0] - r[0, 1], r[0, 0] + r[1, 1] + r[2, 2]]]) / 3.0
+    vals, vecs = np.linalg.eigh(k)
+    x, y, z, w = vecs[:, np.argmax(vals)]
+    q = np.array([w, x, y, z])
+    return q if w >= 0 else -q
+
+
+def write_colmap_model(d: Path, views, width: int, height: int, fx: float,
+                       fy: float, names, pts, rgb, binary: bool) -> None:
+    """A COLMAP sparse model (one PINHOLE camera, an image per view, the
+    points with their uint8 colours) in binary or text form. The views are
+    OpenGL-style world->camera matrices; COLMAP's pose is their rows with
+    y and z flipped (io/colmap.py's convention, inverted). Text floats are
+    written with repr, so both forms hold the same doubles."""
+    import struct
+
+    import numpy as np
+
+    flip = np.diag([1.0, -1.0, -1.0])
+    images = []
+    for i, (v, name) in enumerate(zip(views, names)):
+        v = np.asarray(v, np.float64)
+        images.append((i + 1, rotmat_to_qvec(flip @ v[:3, :3]),
+                       flip @ v[:3, 3], name))
+    intr = (fx, fy, width / 2.0, height / 2.0)
+    d.mkdir(parents=True, exist_ok=True)
+    if binary:
+        with open(d / "cameras.bin", "wb") as f:
+            f.write(struct.pack("<QiiQQ", 1, 1, 1, width, height))
+            f.write(struct.pack("<4d", *intr))
+        with open(d / "images.bin", "wb") as f:
+            f.write(struct.pack("<Q", len(images)))
+            for iid, q, t, name in images:
+                f.write(struct.pack("<i4d3di", iid, *q, *t, 1))
+                f.write(name.encode() + b"\x00" + struct.pack("<Q", 0))
+        with open(d / "points3D.bin", "wb") as f:
+            f.write(struct.pack("<Q", len(pts)))
+            for k, (p, c) in enumerate(zip(pts, rgb)):
+                f.write(struct.pack("<q3d3BdQ", k, *map(float, p),
+                                    *map(int, c), 0.5, 0))
+        return
+    (d / "cameras.txt").write_text(
+        "# Camera list\n1 PINHOLE %d %d %s\n"
+        % (width, height, " ".join(repr(float(x)) for x in intr)))
+    lines = ["# Image list"]
+    for iid, q, t, name in images:
+        lines += [" ".join([str(iid)] + [repr(float(x)) for x in (*q, *t)]
+                           + ["1", name]), "1.0 2.0 -1"]
+    (d / "images.txt").write_text("\n".join(lines) + "\n")
+    (d / "points3D.txt").write_text("# 3D point list\n" + "".join(
+        "%d %s %d %d %d 0.5\n" % (k, " ".join(repr(float(x)) for x in p),
+                                  *map(int, c))
+        for k, (p, c) in enumerate(zip(pts, rgb))))
+
+
+def colmap_fit_run(tmp: Path, run: str, name: str, argv, steps: int):
+    """One cli.fit.main run of the COLMAP workflow on the card, launch
+    counters from 0 just before it and read just after: K1 6 times a step
+    and once for the preview, K2 6 times a step, no other kernel. Returns
+    (its timings, what it printed)."""
+    from tpu_gaussians_torch.cli import fit as fit_cli
+
+    reset_launches()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        fit_cli.main(argv + ["--out_dir", str(tmp / name), "--device",
+                             "cuda"])
+    main_s = time.perf_counter() - t0
+    launches = read_launches()
+    text = printed.getvalue()
+    log(text.rstrip())
+    want = {k: 0 for k in launches}
+    want.update(splat_sep_fwd=6 * steps + 1, splat_sep_bwd=6 * steps)
+    check(launches == want, f"colmap_fit {run}: kernel launches "
+          f"{launches} for {steps} steps, expected exactly {want}")
+    loop_s = float(text.split("Done in ")[1].split("s.")[0])
+    out = {"run": run, "out_dir": name, "steps": steps,
+           "main_wall_s": main_s,
+           "fit_loop_wall_s": loop_s, "steps_per_s": steps / loop_s,
+           "launches": {k: v for k, v in launches.items() if v}}
+    log("colmap_fit " + json.dumps(out))
+    return out, text
+
+
+def colmap_fit_phase(tmp: Path, g_fit, seed: int) -> None:
+    """The COLMAP workflow at the flagship's width: a COLMAP model of the
+    example scene's rig (PINHOLE, binary and text) with 800 SfM points
+    sampled from phase 7's fitted centres; cli.import_colmap; three
+    150-step fits from its init_points.npz (unbroken, interrupted at 50,
+    resumed to 150), the resumed one held to the unbroken one; cli.eval on
+    the card and through the twins on the host; cli.convert to ply and
+    back, the ply evaluated and rendered against the fitted model."""
+    import numpy as np
+    import torch
+
+    from tpu_gaussians_torch.cli import convert as convert_cli
+    from tpu_gaussians_torch.cli import eval as eval_cli
+    from tpu_gaussians_torch.cli import import_colmap as import_cli
+    from tpu_gaussians_torch.core import camera as cam
+    from tpu_gaussians_torch.core.types import RenderConfig, to_device
+    from tpu_gaussians_torch.fit.step import make_optimizer
+    from tpu_gaussians_torch.io import image as im
+    from tpu_gaussians_torch.io.checkpoint import STATE_FILE, Checkpointer
+    from tpu_gaussians_torch.io.npz import load_gaussians_npz
+    from tpu_gaussians_torch.io.ply import load_gaussians_ply
+    from tpu_gaussians_torch.ops.dispatch import render
+
+    d = tmp / "colmap"
+    scene = ROOT / "assets" / "example_scene"
+    rig = np.load(scene / "cameras.npz")
+    names = [p.name for p in im.list_target_paths(scene)]
+    side = 128
+    # The rig's pinhole: m00 = 2 fx / w, m11 = 2 fy / h.
+    fx = float(rig["proj"][0, 0, 0]) * side / 2.0
+    fy = float(rig["proj"][0, 1, 1]) * side / 2.0
+    alive = g_fit.alive_mask().cpu().numpy() > 0.5
+    centres = g_fit.means.cpu().numpy()[alive]
+    colours = np.clip(g_fit.sh[:, 0].cpu().numpy()[alive], 0, 1)
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(centres), 800, replace=False)
+    extent = float(np.linalg.norm(centres.max(0) - centres.min(0)))
+    pts = (centres[pick].astype(np.float64)
+           + rng.normal(0.0, 0.02 * extent, (800, 3)))
+    rgb = np.round(colours[pick] * 255).astype(np.uint8)
+    for binary in (True, False):
+        write_colmap_model(d / ("sparse_bin" if binary else "sparse_txt"),
+                           rig["view"], side, side, fx, fy, names, pts, rgb,
+                           binary)
+
+    # 1. import: the binary model, then the text one
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        import_cli.main(["--colmap_dir", str(d / "sparse_bin"), "--out_dir",
+                         str(d / "import_bin"), "--init_out", "--seed",
+                         str(seed)])
+    import_s = time.perf_counter() - t0
+    log(printed.getvalue().rstrip())
+    check("python -m tpu_gaussians_torch.cli.fit" in printed.getvalue(),
+          "import_colmap did not name the port's fit CLI")
+    with contextlib.redirect_stdout(io.StringIO()):
+        import_cli.main(["--colmap_dir", str(d / "sparse_txt"), "--out_dir",
+                         str(d / "import_txt"), "--init_out", "--seed",
+                         str(seed)])
+    imported = np.load(d / "import_bin" / "cameras.npz")
+    cam_err = max(float(np.abs(imported[k] - rig[k]).max())
+                  for k in ("view", "proj"))
+    check(cam_err <= 1e-5, f"imported cameras differ from the rig by "
+          f"{cam_err} (> 1e-5)")
+    for f in ("cameras.npz", "init_points.npz"):
+        a, b = (np.load(d / sub / f) for sub in ("import_bin", "import_txt"))
+        check(sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files),
+            f"the text model's {f} differs from the binary model's")
+    order = (d / "import_bin" / "image_order.txt").read_text().splitlines()
+    check(order == names, f"image order {order} is not the targets' {names}")
+    init = np.load(d / "import_bin" / "init_points.npz")
+    check(init["means"].shape == (800, 3) and init["sh_coeffs"].shape == (
+        800, 4, 3), "init_points.npz does not hold 800 SH-1 gaussians")
+    log("colmap_fit import " + json.dumps(
+        {"import_s": import_s, "camera_max_abs_err": cam_err,
+         "points": len(pts)}))
+
+    # 2. three fits: unbroken, interrupted at 50, resumed to 150
+    base = ["--targets_dir", str(scene), "--camera_npz",
+            str(d / "import_bin" / "cameras.npz"), "--init_npz",
+            str(d / "import_bin" / "init_points.npz"), "--use_sh",
+            "--checkpoint_every", "50"]
+    runs = {}
+    runs["unbroken"], _ = colmap_fit_run(d, "unbroken", "unbroken",
+                                         base + ["--iters", "150"], 150)
+    runs["interrupted"], _ = colmap_fit_run(d, "interrupted", "resumed",
+                                            base + ["--iters", "50"], 50)
+    runs["resumed"], text = colmap_fit_run(
+        d, "resumed", "resumed", base + ["--iters", "150", "--resume"], 100)
+    check("Resumed from checkpoint at iter 50" in text,
+          "the resumed fit did not print 'Resumed from checkpoint at iter 50'")
+    rows = [json.loads(line) for line in
+            (d / "resumed" / "metrics.jsonl").read_text().splitlines()]
+    check([r["step"] for r in rows] == list(range(1, 151)),
+          "the resumed fit's metrics.jsonl does not hold steps 1-150")
+    ckpts = Checkpointer(d / "resumed" / "checkpoints")
+    check(ckpts.steps() == [50, 100, 150],
+          f"checkpoints/ holds {ckpts.steps()}, not 50, 100 and 150")
+    unbroken = [json.loads(line) for line in
+                (d / "unbroken" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in unbroken]
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"colmap_fit: loss went {losses[0]} -> {losses[-1]}")
+    n_alive = [r["n_alive"] for r in rows]
+    check(n_alive[80] > n_alive[79], f"colmap_fit: N did not grow at "
+          f"iteration 80 ({n_alive[79]} -> {n_alive[80]})")
+
+    # The resumed fit's parameters against the unbroken one's, both from
+    # their checkpoints at 150; the checkpoint's save and restore timed.
+    tx = make_optimizer()
+    restore_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, res_state, _ = ckpts.restore(tx, "cuda")
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+    _, full_state, _ = Checkpointer(d / "unbroken" / "checkpoints").restore(
+        tx, "cuda")
+    err = {}
+    for k, t in full_state.raw.trainable().items():
+        r = res_state.raw.trainable()[k].detach()
+        t = t.detach()
+        err[k] = float((r - t).abs().max())
+        check(bool(torch.allclose(r, t, rtol=1e-5, atol=1e-6)),
+              f"colmap_fit: the resumed fit's {k} is off the unbroken "
+              f"fit's by {err[k]} (rtol 1e-5, atol 1e-6)")
+    bitwise = all(torch.equal(res_state.raw.trainable()[k],
+                              full_state.raw.trainable()[k]) for k in err)
+    save_ms = []
+    gen = torch.Generator()
+    scratch = Checkpointer(d / "save_timing")
+    for step in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scratch.save(step, res_state, gen)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    ckpt_bytes = (ckpts.directory / "150" / STATE_FILE).stat().st_size
+    out = {"fits": runs, "resumed_vs_unbroken_max_abs_err": err,
+           "resumed_vs_unbroken_bitwise": bitwise,
+           "checkpoint_save_ms": sorted(save_ms)[2],
+           "checkpoint_restore_ms": sorted(restore_ms)[2],
+           "checkpoint_bytes": ckpt_bytes,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "n_first": n_alive[0], "n_last": n_alive[-1]}
+    log("colmap_fit resume " + json.dumps(out))
+
+    # 3. eval on the card, then through the twins on the host
+    fitted = d / "resumed" / "gaussians_fitted.npz"
+    eval_args = ["--targets_dir", str(scene), "--camera_npz",
+                 str(d / "import_bin" / "cameras.npz"), "--width",
+                 str(side), "--height", str(side)]
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            eval_cli.main([str(fitted)] + eval_args + [
+                "--device", dev, "--out", str(d / f"eval_{dev}.json")])
+        k1 = read_launches()["splat_sep_fwd"]
+        check(k1 == (6 if dev == "cuda" else 0),
+              f"cli.eval on {dev} launched K1 {k1} times")
+        reports[dev] = json.loads((d / f"eval_{dev}.json").read_text())
+    diff = {k: max(abs(a[k] - b[k]) for a, b in zip(
+        reports["cuda"]["views"] + [reports["cuda"]["mean"]],
+        reports["cpu"]["views"] + [reports["cpu"]["mean"]]))
+        for k in ("psnr", "ssim", "l1")}
+    for k, tol in (("psnr", 0.01), ("ssim", 1e-4), ("l1", 1e-5)):
+        check(diff[k] <= tol, f"cli.eval on the card and through the twins "
+              f"differ by {diff[k]} in {k} (> {tol})")
+    g_res = load_gaussians_npz(fitted, device="cuda")
+    cams = cam.load_cameras_npz(d / "import_bin" / "cameras.npz",
+                                device="cuda")
+    targets = to_device(im.load_targets(im.list_target_paths(scene), side,
+                                        side), "cuda")
+    eval_cfg = RenderConfig(width=side, height=side)
+    eval_ms = time_ms(lambda: eval_cli.view_metrics(g_res, cams, targets,
+                                                    eval_cfg), reps=10)
+    out = {"eval_device_ms": eval_ms, "eval_cuda_mean": reports["cuda"][
+        "mean"], "eval_cpu_mean": reports["cpu"]["mean"],
+        "cuda_vs_cpu_max_abs_diff": diff}
+    log("colmap_fit eval " + json.dumps(out))
+
+    # 4. ply: npz -> ply -> npz, the ply evaluated on the card and
+    # rendered against the fitted model with its dc clamped as on export
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_cli.main([str(fitted), str(d / "fitted.ply")])
+        convert_cli.main([str(d / "fitted.ply"), str(d / "fitted_ply.npz")])
+        eval_cli.main([str(d / "fitted.ply")] + eval_args + [
+            "--footprint", "axis", "--device", "cuda", "--out",
+            str(d / "eval_ply.json")])
+    g_ply = load_gaussians_ply(d / "fitted.ply", device="cuda")
+    g_back = load_gaussians_npz(d / "fitted_ply.npz", device="cuda")
+    sh_c = g_res.sh.clone()
+    sh_c[:, 0] = sh_c[:, 0].clamp(0, 1)
+    for got in (g_ply, g_back):
+        for a, b, rtol, atol in ((got.means, g_res.means, 1e-5, 1e-6),
+                                 (got.scales, g_res.scales, 1e-4, 0.0),
+                                 (got.opacities, g_res.opacities, 1e-4, 0.0),
+                                 (got.sh, sh_c, 1e-3, 1e-5)):
+            check(bool(torch.allclose(a, b, rtol=rtol, atol=atol)),
+                  f"the ply round trip moved a field by "
+                  f"{float((a - b).abs().max())}")
+    with torch.no_grad():
+        img_ply = render(g_ply.replace(quats=None), cams[0], eval_cfg)
+        img_fit = render(g_res.replace(sh=sh_c), cams[0], eval_cfg)
+    render_err = float((img_ply - img_fit).abs().max())
+    check(render_err <= 1e-4, f"the ply-loaded model renders {render_err} "
+          f"off the fitted one (> 1e-4)")
+    ply_report = json.loads((d / "eval_ply.json").read_text())
+    out = {"ply_bytes": (d / "fitted.ply").stat().st_size,
+           "ply_render_max_abs_err": render_err,
+           "eval_ply_mean": ply_report["mean"]}
+    log("colmap_fit ply " + json.dumps(out))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -2391,6 +2738,10 @@ def main() -> int:
         "flagship_128x128_fitted", staged_sep(activate(raw_fit), cams.view[0],
                                               cams.proj[0], 128, 128),
         args.seed)]
+
+    # 7b. colmap_fit: the SfM workflow, from SfM points sampled from the
+    # fitted model: import, fit, interrupt, resume, evaluate, export
+    colmap_fit_phase(Path(tmp.name), g_fit, args.seed)
 
     # 8. at scale: 100k alive gaussians, 4 views at 512x512
     n_s, side = 100_000, 512

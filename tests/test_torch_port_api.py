@@ -1,7 +1,9 @@
 """Port parity, package-level API: every package of `tpu_gaussians` that the
 port mirrors re-exports the same names, in the same `__all__`, from
 `tpu_gaussians_torch`, and each name resolves to the port's own object.
-(`parallel` comes with the parallel slice.)"""
+(`parallel` comes with the parallel slice.) Each public function and class
+of the JAX modules of the interop, evaluation and checkpoint slice has a
+namesake of the same kind in the port's module of the same path."""
 
 import importlib
 import subprocess
@@ -12,6 +14,23 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGES = ("", ".core", ".io", ".models", ".ops", ".fit")
+SLICE_MODULES = ("io.ply", "io.colmap", "io.checkpoint", "cli.convert",
+                 "cli.make_cameras", "cli.eval", "cli.import_colmap",
+                 "cli.view", "utils.debug", "utils.profiling")
+
+
+def public_callables(module):
+    """The public functions and classes defined in a JAX module."""
+    mod = importlib.import_module("tpu_gaussians." + module)
+    return sorted(n for n, o in vars(mod).items()
+                  if not n.startswith("_") and callable(o)
+                  and getattr(o, "__module__", None) == mod.__name__)
+
+
+SLICE_NAMES = [(m, n) for m in SLICE_MODULES for n in public_callables(m)] + [
+    ("models.gaussian_model", "init_params_from_points"),
+    ("utils.config", "FitConfig.to_json"),
+    ("utils.config", "FitConfig.from_json")]
 
 
 def _pair(sub):
@@ -66,3 +85,14 @@ def test_package_import_alone_loads_no_jax(sub):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module,name", SLICE_NAMES,
+                         ids=[f"{m}.{n}" for m, n in SLICE_NAMES])
+def test_slice_name_has_port_namesake(module, name):
+    ref = importlib.import_module("tpu_gaussians." + module)
+    port = importlib.import_module("tpu_gaussians_torch." + module)
+    for part in name.split("."):
+        ref, port = getattr(ref, part), getattr(port, part)
+    assert isinstance(port, type) == isinstance(ref, type)
+    assert port.__module__ == "tpu_gaussians_torch." + module

@@ -1142,8 +1142,10 @@ def launched_blocks(fn, kernel, tries=3):
     """Thread blocks of each launch of the kernel whose name holds `kernel`
     that fn() makes: the grid of its kernel events in a torch.profiler
     trace of three calls of fn, which must agree. The profiler now and then
-    keeps no launch of the kernel in a window on an H100: such a window is
-    traced again, at most `tries` windows in all, with a warning."""
+    keeps no launch of the kernel in a window on an H100 (an event near the
+    window's ends can fall outside it by the profiler's clock): such a
+    window is traced again with 2 s of wait at both ends, at most `tries`
+    windows in all, with a warning."""
     import json
     import tempfile
     import time
@@ -1153,14 +1155,17 @@ def launched_blocks(fn, kernel, tries=3):
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, tries + 1):
+        pad = 0.0 if attempt == 1 else 2.0
         torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
             trace = Path(tmp) / "trace.json"
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                time.sleep(pad)
                 for _ in range(3):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(pad)
             prof.export_chrome_trace(str(trace))
             events = json.loads(trace.read_text())["traceEvents"]
         grids = {tuple(e["args"]["grid"]) for e in events
@@ -1172,7 +1177,6 @@ def launched_blocks(fn, kernel, tries=3):
             f"({sum(e.get('cat') == 'kernel' for e in events)} kernel and "
             f"{sum(e.get('cat') == 'cuda_runtime' for e in events)} runtime "
             "events); tracing again")
-        time.sleep(1.0)
     assert len(grids) == 1
     return int(np.prod(grids.pop()))
 
@@ -1348,3 +1352,68 @@ def test_sorted_fwd_kernel_edges(cuda, case, footprint):
                                                     axis=axis)
     assert bool(torch.isfinite(acc).all())
     assert_sorted_fwd_close(acc, chunks, ref, ref_chunks, 1e-6)
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_a_cuda_fit_restores_on_cuda(cuda, tmp_path):
+    """A fit on the card checkpoints every 5 steps; its last checkpoint
+    restores onto the card equal to the fit's final parameters, Adam's
+    moments on the card and its step counts on the host; a resumed fit
+    runs on from it."""
+    import dataclasses
+
+    from tpu_gaussians_torch.fit import trainer
+    from tpu_gaussians_torch.fit.step import make_optimizer
+    from tpu_gaussians_torch.io.checkpoint import Checkpointer
+    from tpu_gaussians_torch.utils.config import FitConfig
+
+    w = h = 32
+    targets = np.random.default_rng(0).uniform(
+        size=(2, h, w, 3)).astype(np.float32)
+    cams = tcam.orbit_cameras(2, w, h, device=cuda)
+    cfg = FitConfig(iters=10, width=w, height=h, num_gaussians=12,
+                    max_gaussians=16, densify_interval=0, prune_interval=0,
+                    silhouette_weight=0.0, log_every=1000,
+                    checkpoint_every=5)
+    result = trainer.fit(cfg, targets, cams, out_dir=tmp_path, device=cuda)
+    step, state, gen_state = Checkpointer(tmp_path / "checkpoints").restore(
+        make_optimizer(cfg.lr), cuda)
+    assert step == 10 and gen_state.device.type == "cpu"
+    for k, t in state.raw.trainable().items():
+        assert t.device.type == "cuda"
+        assert torch.equal(t, getattr(result.raw, k))
+    for s in state.opt.state.values():
+        assert s["exp_avg"].device.type == "cuda"
+        assert s["step"].device.type == "cpu" and float(s["step"]) == 10.0
+    resumed = trainer.fit(dataclasses.replace(cfg, iters=15, resume=True),
+                          targets, cams, out_dir=tmp_path, device=cuda)
+    assert len(resumed.loss_log) == 5
+    assert resumed.raw.means.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_interpret_mode_runs_the_plain_twins_on_cuda(cuda):
+    """Under utils.debug.interpret_mode a wrapper launches nothing and
+    returns its twin's output bit for bit, on CUDA tensors; outside it the
+    same call launches the kernel."""
+    from tpu_gaussians_torch.utils.debug import interpret_mode
+
+    lo, cnt, gdata, rows, wp, nb = sep_case("flagship_shape", cuda)
+    gdense, counts = synthetic_lists(True, device=cuda)
+    before, before_k3 = dict(splat_sep.launches), sorted_fwd.launches
+    with interpret_mode():
+        acc = splat_sep.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
+        k3, k3_chunks = sorted_fwd.sorted_tiles(gdense, counts, TILES_X,
+                                                axis=True)
+    assert splat_sep.launches == before and sorted_fwd.launches == before_k3
+    assert acc.device.type == "cuda"
+    assert torch.equal(acc, splat_sep.sep_fwd_plain(lo, cnt, gdata, rows, wp,
+                                                    nb))
+    ref, ref_chunks = sorted_fwd.sorted_tiles_plain(gdense, counts, TILES_X,
+                                                    axis=True)
+    assert torch.equal(k3, ref) and torch.equal(k3_chunks, ref_chunks)
+    splat_sep.splat_sep_fwd(lo, cnt, gdata, rows, wp, nb)
+    sorted_fwd.sorted_tiles(gdense, counts, TILES_X, axis=True)
+    torch.cuda.synchronize()
+    assert splat_sep.launches["splat_sep_fwd"] == before["splat_sep_fwd"] + 1
+    assert sorted_fwd.launches == before_k3 + 1

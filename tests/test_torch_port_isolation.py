@@ -1,15 +1,22 @@
 """The port stands alone: no module of `tpu_gaussians_torch`, and not
-`chip_smoke.py`, imports JAX or the JAX package."""
+`chip_smoke.py`, imports JAX, the JAX package, orbax or optax; each module
+of the interop, evaluation and checkpoint slice imports alone in a fresh
+interpreter without them or matplotlib (which cli.view imports only when
+it runs)."""
 
 import ast
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "tpu_gaussians")
+FORBIDDEN = ("jax", "jaxlib", "tpu_gaussians", "orbax", "optax")
+SLICE_MODULES = ("io.ply", "io.colmap", "io.checkpoint", "cli.convert",
+                 "cli.make_cameras", "cli.eval", "cli.import_colmap",
+                 "cli.view", "utils.debug", "utils.profiling")
 
 
 def port_files():
@@ -41,7 +48,9 @@ def test_port_files_exist():
                      "tpu_gaussians_torch/kernels/sorted_bwd.py",
                      "tpu_gaussians_torch/kernels/splat_v2.py",
                      "tpu_gaussians_torch/kernels/binned.py",
-                     "tpu_gaussians_torch/ops/binned.py"):
+                     "tpu_gaussians_torch/ops/binned.py") + tuple(
+                         f"tpu_gaussians_torch/{m.replace('.', '/')}.py"
+                         for m in SLICE_MODULES):
         assert expected in names
 
 
@@ -58,4 +67,28 @@ def test_importing_the_server_loads_no_jax():
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def import_alone(module):
+    code = (f"import sys; import tpu_gaussians_torch.{module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('matplotlib',)!r}]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+
+
+@pytest.fixture(scope="module")
+def fresh_imports():
+    """Each slice module imported in an interpreter of its own, a few at
+    a time (each start-up is mostly torch's import)."""
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        return dict(zip(SLICE_MODULES, pool.map(import_alone,
+                                                SLICE_MODULES)))
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_imports_alone(fresh_imports, module):
+    proc = fresh_imports[module]
     assert proc.returncode == 0, proc.stdout + proc.stderr

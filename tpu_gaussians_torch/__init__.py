@@ -6,20 +6,23 @@ to find, and never imports it (nor JAX). Every path of the JAX package's
 render server (cli.serve), renderer (cli.render) and trainer (cli.fit) is
 ported: both render modes, both footprints, the tile-binned and the exact
 dense accumulation routes, down to a hand-written CUDA kernel for each of
-its Pallas kernels (`csrc/*.cu`). Still to port: `parallel/`, PLY,
-COLMAP, checkpoints and the remaining CLIs (ROADMAP.md).
+its Pallas kernels (`csrc/*.cu`); so are its interop (PLY, COLMAP import),
+evaluation, checkpoint/resume and debug and profiling modules. Still to
+port: `parallel/` and the `native/` binding (ROADMAP.md).
 
 Layout:
   core/      Gaussians, Camera, RenderConfig, camera math
-  io/        npz (reference schema), image loading and PNG output
+  io/        npz (reference schema), 3DGS PLY, COLMAP models, checkpoints,
+             image loading and PNG output
   ops/       per-gaussian stage, tile binner, sorted compositing, band,
              tile-grid and tile-binned accumulation, dispatch
   kernels/   nvcc build + ctypes binding, kernel wrappers and plain twins
   csrc/      CUDA C++ kernel sources (sm_90a)
   models/    raw parameters at fixed capacity, activations
   fit/       loss, Adam step, densify/prune, trainer
-  utils/     FitConfig
-  cli/       fit / serve / render entry points
+  utils/     FitConfig, debug aids (interpret_mode), profiling
+  cli/       fit / serve / render / eval / import_colmap / convert /
+             make_cameras / view entry points
 """
 
 from tpu_gaussians_torch.core.types import Camera, Gaussians, RenderConfig

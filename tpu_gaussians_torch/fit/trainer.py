@@ -7,7 +7,9 @@ reference's intervals with its optimizer reset (:318-325), logs loss
 artifacts: gaussians_fitted.npz, loss.txt, preview_view0.png (:339-380).
 The schedule is the JAX trainer's: the first step alone (its iter-1 log
 line), then segments between host events, the positional lr decay
-evaluated at each segment's start.
+evaluated at each segment's start. Given an out_dir, it checkpoints every
+`checkpoint_every` steps and, with `resume`, restarts from the latest
+checkpoint there (io/checkpoint.py), appending to metrics.jsonl.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from tpu_gaussians_torch.fit.loss import LossConfig
 from tpu_gaussians_torch.fit.step import (
     init_state, make_optimizer, make_train_step)
 from tpu_gaussians_torch.io import image as im
+from tpu_gaussians_torch.io.checkpoint import Checkpointer
 from tpu_gaussians_torch.io.npz import load_gaussians_npz, save_raw_npz
 from tpu_gaussians_torch.models.gaussian_model import (
     RawParams, activate, init_params, raw_from_gaussians)
@@ -78,10 +81,6 @@ def _refuse_unported(config: FitConfig) -> None:
         raise NotImplementedError(
             "num_view_shards > 1 (views sharded over devices) is ported with "
             "the parallel slice; use 1")
-    if config.checkpoint_every > 0 or config.resume:
-        raise NotImplementedError(
-            "checkpoint_every > 0 and --resume are ported with the "
-            "checkpoint slice")
 
 
 def fit(
@@ -166,6 +165,14 @@ def fit(
 
     tx = make_optimizer(config.lr)
     state = init_state(raw, tx)
+    checkpointer = None
+    start_iter = 0
+    if out_dir is not None and (config.checkpoint_every > 0 or config.resume):
+        checkpointer = Checkpointer(Path(out_dir) / "checkpoints")
+        if config.resume and checkpointer.latest_step() is not None:
+            start_iter, state, gen_state = checkpointer.restore(tx, dev)
+            gen.set_state(gen_state)
+            print(f"Resumed from checkpoint at iter {start_iter}")
     step_fn = make_train_step(render_config, loss_config, has_masks,
                               has_depths)
 
@@ -177,7 +184,8 @@ def fit(
     def next_event(it: int) -> int:
         nxt = config.iters
         for interval in (config.log_every, config.densify_interval,
-                         config.prune_interval, config.opacity_reset_interval):
+                         config.prune_interval, config.checkpoint_every,
+                         config.opacity_reset_interval):
             if interval > 0:
                 nxt = min(nxt, ((it // interval) + 1) * interval)
         return nxt
@@ -185,11 +193,12 @@ def fit(
     rows = []   # per-step metric rows, fetched from the device at the end
     warned_lossy = False   # warn once when a step's render dropped work
     t0 = time.perf_counter()
-    last_log_t, last_log_it = t0, 0
-    it, seg_end, mlr = 0, 0, 1.0
+    last_log_t, last_log_it = t0, start_iter
+    it, seg_end, mlr = start_iter, start_iter, 1.0
     while it < config.iters:
         if it == seg_end:   # a new segment: the lr decay is read here
-            seg_end = 1 if it == 0 else min(next_event(it), it + MAX_SEG)
+            seg_end = (it + 1 if it == start_iter
+                       else min(next_event(it), it + MAX_SEG))
             mlr = means_lr_at(it)
         state, metrics = step_fn(state, cameras, targets_t, masks_t,
                                  depths_t, means_lr_scale=mlr)
@@ -197,7 +206,8 @@ def fit(
                                  for k in METRIC_KEYS]))
         it += 1
 
-        if it == 1 or (config.log_every > 0 and it % config.log_every == 0):
+        if it == start_iter + 1 or (config.log_every > 0
+                                    and it % config.log_every == 0):
             lv, n = float(rows[-1][0]), int(rows[-1][METRIC_KEYS.index(
                 "n_alive")])
             now = time.perf_counter()
@@ -242,6 +252,10 @@ def fit(
             state = init_state(state.raw.replace(opacities_raw=torch.clamp(
                 state.raw.opacities_raw.detach(), max=logit)), tx)
 
+        if (checkpointer is not None and config.checkpoint_every > 0
+                and it % config.checkpoint_every == 0):
+            checkpointer.save(it, state, gen)
+
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -252,9 +266,11 @@ def fit(
     if out_dir is not None and config.metrics_jsonl and rows:
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
-        with (out_dir / "metrics.jsonl").open("w") as f:
+        # A resumed fit appends the steps it ran to the earlier ones.
+        with (out_dir / "metrics.jsonl").open(
+                "a" if start_iter > 0 else "w") as f:
             for i, row in enumerate(hist):
-                f.write(json.dumps({"step": i + 1, **{
+                f.write(json.dumps({"step": start_iter + i + 1, **{
                     k: float(x) for k, x in zip(METRIC_KEYS, row)}}) + "\n")
     final = state.raw.with_trainable(
         {k: t.detach() for k, t in state.raw.trainable().items()})

@@ -39,6 +39,10 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 logs: Dict[str, str] = {}        # nvcc output of builds made in this process
+# Raised by utils.debug.interpret_mode (a debugging aid that only an
+# explicit caller enters): while it is above 0, every wrapper runs its
+# plain twin on CUDA tensors too, and launches nothing.
+interpret_depth = 0
 
 
 def nvcc() -> str:
@@ -94,13 +98,16 @@ def load(name: str) -> ctypes.CDLL:
 
 def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
     """True if kernel `name` is to be launched on `tensors` (CUDA, 16-byte
-    aligned: the kernels load float4), False for CPU tensors (the plain
-    twin's case); raises on any other device or a misaligned tensor."""
+    aligned: the kernels load float4), False for CPU tensors and inside
+    utils.debug.interpret_mode (the plain twin's cases); raises on any
+    other device or a misaligned tensor."""
     dev = tensors[0].device
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, got {dev}")
+    if interpret_depth > 0:
+        return False
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: tensors must be 16-byte aligned (the "
                          "kernel loads float4)")

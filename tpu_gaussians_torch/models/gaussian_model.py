@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,6 +121,86 @@ def init_params(generator: torch.Generator, num_gaussians: int,
     else:
         raw["colors_raw"] = torch.zeros((c, 3))
         raw["colors_raw"][:n] = dc
+    return RawParams(**{k: v.to(dev) for k, v in raw.items()})
+
+
+def init_params_from_points(
+    generator: torch.Generator, points, rgb, capacity: int,
+    use_sh: bool = False, use_quats: bool = False, sh_degree: int = 1,
+    device: Device = "cuda",
+    draws: Optional[Tuple[Optional[np.ndarray], Optional[np.ndarray]]] = None,
+) -> RawParams:
+    """3DGS-style initialization from an SfM point cloud (e.g. COLMAP
+    points3D), as `tpu_gaussians.models.gaussian_model`'s: means = points,
+    color init from the point RGB, per-point scale from the
+    nearest-neighbor distance (isotropic), opacity raw -2.2 like the
+    reference init.
+
+    points (P,3) / rgb (P,3 in [0,1]); P > capacity is subsampled
+    uniformly. NN distance is estimated against <= 4096 random anchors
+    (exact for P <= 4096), clipped to [1e-4, 0.1] x the cloud's extent.
+    The two draws (subsample, then anchors; each without replacement) come
+    from `generator` on the CPU, or from `draws` = (subsample indices or
+    None, anchor indices or None), so that a test can start this package
+    and the JAX one from the same indices.
+    """
+    pts = np.asarray(points, np.float32).reshape(-1, 3)
+    col = np.clip(np.asarray(rgb, np.float32).reshape(-1, 3), 0.0, 1.0)
+    p = pts.shape[0]
+    if p == 0:
+        raise ValueError("init_params_from_points: empty point cloud")
+
+    def choose(drawn, k: int) -> np.ndarray:
+        if draws is not None and drawn is not None:
+            return np.asarray(drawn, np.int64)
+        return torch.randperm(p, generator=generator)[:k].numpy()
+
+    if p > capacity:
+        sel = choose(draws[0] if draws else None, capacity)
+        pts, col = pts[sel], col[sel]
+        p = capacity
+
+    # Per-point NN distance against a random anchor subset.
+    n_anchor = min(p, 4096)
+    anchor_idx = (np.arange(p) if n_anchor == p
+                  else choose(draws[1] if draws else None, n_anchor))
+    anchors = pts[anchor_idx]
+    d2 = (np.sum(pts * pts, 1)[:, None] + np.sum(anchors * anchors, 1)[None]
+          - 2.0 * pts @ anchors.T)
+    d2[np.arange(p)[:, None] == anchor_idx[None, :]] = np.inf
+    nn = np.sqrt(np.maximum(np.min(d2, axis=1), 1e-12))
+    extent = float(np.linalg.norm(pts.max(0) - pts.min(0)) + 1e-6)
+    nn = np.clip(nn, 1e-4 * extent, 0.1 * extent)
+    # softplus(raw) + 1e-3 = nn  ->  raw = softplus^-1(nn - 1e-3)
+    y = np.maximum(nn - 1e-3, 1e-6)
+    scales_val = (y + np.log1p(-np.exp(-np.maximum(y, 1e-6)))
+                  ).astype(np.float32)
+
+    c = capacity
+    means = torch.zeros((c, 3))
+    means[:p] = torch.from_numpy(pts)
+    scales_raw = torch.full((c, 3), -2.2)
+    scales_raw[:p] = torch.from_numpy(scales_val)[:, None]
+    raw = dict(means=means, scales_raw=scales_raw,
+               opacities_raw=torch.full((c,), -2.2),
+               alive=(torch.arange(c) < p).to(torch.float32))
+    if use_quats:
+        raw["quats_raw"] = torch.zeros((c, 4))
+        raw["quats_raw"][:, 0] = 1.0
+    if use_sh:
+        bands = sh_bands(sh_degree)
+        dc = torch.from_numpy(col)
+        if bands > 4:   # 3DGS convention: color = 0.5 + C0 * dc
+            dc = (dc - 0.5) / SH_C0
+        raw["sh_raw"] = torch.zeros((c, bands, 3))
+        raw["sh_raw"][:p, 0, :] = dc
+    else:
+        # colors = sigmoid(colors_raw): invert with a clamp away from {0,1}.
+        cc = np.clip(col, 1e-4, 1.0 - 1e-4)
+        raw["colors_raw"] = torch.zeros((c, 3))
+        raw["colors_raw"][:p] = torch.from_numpy(
+            (np.log(cc) - np.log1p(-cc)).astype(np.float32))
+    dev = resolve_device(device)
     return RawParams(**{k: v.to(dev) for k, v in raw.items()})
 
 

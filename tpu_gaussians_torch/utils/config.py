@@ -6,6 +6,8 @@ package's values: auto | torch | tiled."""
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
 
 
@@ -74,6 +76,13 @@ class FitConfig:
     sorted_pair_k: int = 0         # sorted-mode per-gaussian tile budget;
                                    # 0 = measured at init
     metrics_jsonl: bool = True     # structured per-step metrics to metrics.jsonl
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(text: str) -> "FitConfig":
+        return FitConfig(**json.loads(text))
 
 
 # EWA models at or above this capacity train in sorted mode under
