@@ -182,7 +182,37 @@ Phases, each of which fails the run by raising:
               bound on view 0's band staging and K9b's on its restaging
               (each at the SM clock read while it runs), each beside its
               CUDA-event time there
- 20. report   one `kernels` JSON line, the nvidia-smi line, and last
+ 20. parallel  the flagship fit of phase 7 as two ranks sharing the card:
+              cli.fit under `python -m torch.distributed.run --standalone
+              --nproc_per_node 2` with --num_view_shards 2 (3 views a rank,
+              gloo by parallel.mesh's rule): torch.distributed.run exits 0
+              (it exits non-zero, naming the rank, when any rank fails) and
+              each rank printed its summary line, the checks of phase 7,
+              rank 0 alone wrote out_dir, the parameters bit-identical
+              across ranks (sha256), each rank launched K1 and K2 exactly
+              450 times (3 a step; rank 0 K1 once more, the preview) and no
+              other kernel, one all-reduce a step; its wall time and steps/s
+              beside phase 7's. Then chip_smoke.py --parallel_worker on two
+              ranks: one step of the sharded, shardmap and overlapped (1, 2
+              and 3 chunks) factories and of the rows mesh (1x2, SSIM on)
+              against the single-process step on the flagship's inputs, in
+              accum (K1/K2), sorted (K3/K4) and accum_binned on (K7a/K7b)
+              mode, at tests/test_sharded.py's tolerances (loss rtol 1e-5 /
+              atol 1e-6, leaves rtol 2e-4 / atol 2e-6), both ranks equal;
+              and phase 8's 100k scene, 2 views a rank: 10 steps timed
+              (CUDA events), the all-reduce's bytes and host ms a step, the
+              same all-reduce alone, each rank's device busy share
+              (torch.profiler). render_tiled on phase 3's scene at 960x540
+              (phase 4's pose), 2 and 7 bands on the one card, sorted (K3)
+              and accum (K1), against the whole frame at rtol / atol 2e-5
+              with the aux outputs, timed beside it (CUDA events); cli.render
+              --shard_bands 2 against cli.render (<= 1 LSB). The native CPU
+              rasterizer (tpu_gaussians_torch.native, built with g++): phase
+              6's small scene and the flagship's fitted model in both modes
+              against the plain and the card renders within NATIVE_ATOL,
+              its host ms a frame beside the CPU's name, gs_viewer for 3
+              frames
+ 21. report   one `kernels` JSON line, the nvidia-smi line, and last
               {"ok": true, "device": {...}}
 
 K1, K5, K7a, K8a and K9a are held to rtol 1e-5 / atol 1e-5; K2, K6, K7b,
@@ -201,9 +231,10 @@ grid's: rtol 2e-3 and atol 2e-4 times the largest magnitude. Kernel times
 are CUDA-event medians of 20 after warm-up (twins: of 5; at 1M, kernels of
 5 and twins of 1). The launch counters are set to 0 just before each main
 path (phases 4-5 for serving, the cli.fit.main calls of phases 7, 7b, 9,
-13, 14 and 15 and the train steps of phases 17 and 19 for training, and
-7b's cli.eval calls) and read just after: every kernel of the path must
-have launched there. It exits non-zero, printing no result,
+13, 14 and 15 and the train steps of phases 17 and 19 for training, 7b's
+cli.eval calls and phase 20's render_tiled calls; the ranks of phase 20's
+fit count their own from 0 and print them) and read just after: every
+kernel of the path must have launched there. It exits non-zero, printing no result,
 without a CUDA device or outside a checkout.
 """
 
@@ -1302,12 +1333,9 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    from tpu_gaussians_torch.kernels import (
-        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2)
+    from tpu_gaussians_torch.utils.profiling import launch_counts
 
-    return {"sorted_fwd": sorted_fwd.launches,
-            "sorted_bwd": sorted_bwd.launches, **splat_sep.launches,
-            **splat_v2.launches, **binned.launches, **splat_v1.launches}
+    return launch_counts()
 
 
 def fit_phase(tmp: Path, name: str, extra_args, launches_expected: dict,
@@ -2562,10 +2590,511 @@ def colmap_fit_phase(tmp: Path, g_fit, seed: int) -> None:
     log("colmap_fit ply " + json.dumps(out))
 
 
+PARALLEL_FIT_ARGS = ["--num_view_shards", "2"]
+PARALLEL_TIMEOUT_S = 600
+# The native CPU rasterizer against the port's renders (phase 20): its
+# splats are cut where w < 1e-5 and it sums in another order, so it
+# differs from the plain renderer by up to about N x 1e-5 (tests/
+# test_native.py's atol 5e-4 at 40 gaussians). Measured: at most 3.4e-4
+# over phase 20's cases on the H100 (the flagship fit, accum mode), 5.9e-4
+# on the CPU with another fit of the same recipe.
+NATIVE_ATOL = 1e-3
+
+
+def served_camera(yaw: float, pitch: float, radius: float, width: int,
+                  height: int):
+    """cli.serve's orbit camera of a request, on the card."""
+    import math
+
+    from tpu_gaussians_torch.core import camera as cam
+    from tpu_gaussians_torch.core.types import Camera
+
+    eye = [radius * math.cos(pitch) * math.sin(yaw), radius * math.sin(pitch),
+           radius * math.cos(pitch) * math.cos(yaw)]
+    return Camera(view=cam.look_at(eye, [0.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                                   device="cuda"),
+                  proj=cam.perspective(60.0, width / height, 0.01, 100.0,
+                                       device="cuda"))
+
+
+def torchrun(args, timeout: int = PARALLEL_TIMEOUT_S):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 2`
+    with `args`, from the root of the checkout; (completed process, wall
+    s). torch.distributed.run exits non-zero when any rank does, and its
+    summary names the rank and its exit code."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", *args], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def rank_lines(text: str, prefix: str) -> dict:
+    """The JSON of each `<prefix> <rank> of <world>: {...}` line."""
+    out = {}
+    for line in text.splitlines():
+        m = re.match(rf"{prefix} (\d+) of (\d+): (\{{.*\}})\s*$", line)
+        if m:
+            out[int(m.group(1))] = json.loads(m.group(3))
+    return out
+
+
+def parallel_fit_phase(tmp: Path, single: dict) -> dict:
+    """The flagship fit as two ranks on the one card: cli.fit under
+    torch.distributed.run with --num_view_shards 2 (3 of the 6 views a
+    rank, gloo by initialize_distributed's rule). Both ranks exit 0, the
+    loss falls under half, N grows at 80, rank 0 alone writes out_dir, the
+    parameters are bit-identical across ranks, and each rank launched K1
+    and K2 3 times a step (rank 0 K1 once more, the preview) and no other
+    kernel."""
+    import numpy as np
+
+    out_dir = tmp / "fit_2ranks"
+    argv = ["-m", "tpu_gaussians_torch.cli.fit"] + [
+        str(ROOT / a) if a.startswith("assets") else a for a in FIT_ARGS] + (
+        PARALLEL_FIT_ARGS + ["--out_dir", str(out_dir), "--device", "cuda"])
+    proc, wall = torchrun(argv)
+    log(proc.stdout.rstrip())
+    check(proc.returncode == 0, f"2-rank fit: torch.distributed.run exited "
+          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    ranks = rank_lines(proc.stdout, "rank")
+    check(sorted(ranks) == [0, 1], f"2-rank fit: rank summaries of ranks "
+          f"{sorted(ranks)}, expected 0 and 1")
+    check("backend gloo" in proc.stdout,
+          "2-rank fit on one card did not pick gloo")
+    losses = [float(x) for x in
+              (out_dir / "loss.txt").read_text().splitlines()]
+    metrics = [json.loads(line) for line in
+               (out_dir / "metrics.jsonl").read_text().splitlines()]
+    n_alive = [m["n_alive"] for m in metrics]
+    check(len(losses) == 150, f"2-rank fit: loss.txt has {len(losses)} "
+          "lines")
+    check(bool(np.isfinite(losses).all()) and losses[-1] < 0.5 * losses[0],
+          f"2-rank fit: loss went {losses[0]} -> {losses[-1]}: not under "
+          "half")
+    check(n_alive[80] > n_alive[79], f"2-rank fit: N did not grow at "
+          f"iteration 80 ({n_alive[79]} -> {n_alive[80]})")
+    artifacts = ["gaussians_fitted.npz", "loss.txt", "metrics.jsonl",
+                 "preview_view0.png"]
+    check(sorted(p.name for p in out_dir.iterdir()) == artifacts
+          and all((out_dir / a).stat().st_size > 0 for a in artifacts),
+          f"2-rank fit: out_dir holds {sorted(p.name for p in out_dir.iterdir())}")
+    check(ranks[0]["wrote_out_dir"] and not ranks[1]["wrote_out_dir"],
+          "2-rank fit: a rank other than 0 wrote out_dir")
+    check(ranks[0]["params_sha256"] == ranks[1]["params_sha256"],
+          "2-rank fit: the ranks' parameters differ: "
+          f"{ranks[0]['params_sha256']} != {ranks[1]['params_sha256']}")
+    for r, summary in ranks.items():
+        want = {k: 0 for k in summary["kernel_launches"]}
+        want["splat_sep_fwd"] = 3 * 150 + (1 if r == 0 else 0)
+        want["splat_sep_bwd"] = 3 * 150
+        check(summary["kernel_launches"] == want, f"2-rank fit: rank {r} "
+              f"launched {summary['kernel_launches']}, expected {want}")
+        check(summary["allreduce_calls_per_step"] == 1,
+              f"2-rank fit: rank {r} made "
+              f"{summary['allreduce_calls_per_step']} all-reduces a step")
+    loop_s = float(proc.stdout.split("Done in ")[1].split("s.")[0])
+    out = {"iters": 150, "command_wall_s": wall, "fit_loop_wall_s": loop_s,
+           "steps_per_s": 150 / loop_s,
+           "single_process_fit_loop_wall_s": single["fit_loop_wall_s"],
+           "single_process_steps_per_s": single["steps_per_s"],
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "single_process_loss_last": single["loss_last"],
+           "n_first": n_alive[0], "n_last": n_alive[-1],
+           "params_sha256": ranks[0]["params_sha256"],
+           "launches": {r: s["kernel_launches"] for r, s in ranks.items()},
+           "allreduce_bytes_per_step": ranks[0]["allreduce_bytes_per_step"],
+           "allreduce_host_ms_per_step": {
+               r: s["allreduce_host_ms_per_step"] for r, s in ranks.items()}}
+    log("parallel fit 2 ranks " + json.dumps(out))
+    return out
+
+
+def states_err(s1, m1, s2, m2) -> dict:
+    """How far a step's result is from the single-process step's, in units
+    of tests/test_sharded.py's _assert_states_match tolerances (loss rtol
+    1e-5 / atol 1e-6, leaves rtol 2e-4 / atol 2e-6): at most 1 passes."""
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    leaves = max(float(((b - a).abs() / (2e-6 + 2e-4 * a.abs())).max())
+                 for a, b in zip(s1.raw.trainable().values(),
+                                 s2.raw.trainable().values())
+                 for a, b in [(a.detach(), b.detach())])
+    return {"loss": abs(l2 - l1) / (1e-6 + 1e-5 * abs(l1)),
+            "leaves": leaves,
+            "psnr_diff": abs(float(m2["psnr"]) - float(m1["psnr"]))}
+
+
+def parallel_worker(out_dir: Path, seed: int) -> None:
+    """One of two ranks under torch.distributed.run, sharing the card
+    (gloo): one sharded step of each factory against the single-process
+    step on the flagship's inputs (RGB colours, as tests/test_sharded.py's
+    setup), in three modes; then phase 8's 100k scene on 4 views of
+    512x512 over the two ranks. Writes out_dir/rank<r>.json.
+
+    With SH colours the rows mesh misses the leaf tolerance on the
+    degree-1 coefficients: their gradients (about 1e-9, under Adam's eps
+    1e-8) cancel over views, and Adam's first step passes their rounding
+    (a window's pixels summed apart) to the update; 2.7-2.9 times the
+    tolerance on the CPU through the plain renderer, 4.1 on the card. That
+    case is measured and printed beside the held ones, not held."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_gaussians_torch.cli.fit import params_digest
+    from tpu_gaussians_torch.core import camera as cam
+    from tpu_gaussians_torch.core.types import (
+        RenderConfig, make_gaussians, resolve_device, to_device)
+    from tpu_gaussians_torch.fit.loss import LossConfig
+    from tpu_gaussians_torch.fit.step import (
+        init_state, make_optimizer, make_train_step)
+    from tpu_gaussians_torch.fit.trainer import load_dataset
+    from tpu_gaussians_torch.models.gaussian_model import (
+        activate, init_params, raw_from_gaussians)
+    from tpu_gaussians_torch.ops import sorted as tiled
+    from tpu_gaussians_torch.parallel import mesh as pmesh
+    from tpu_gaussians_torch.parallel import sharded
+    from tpu_gaussians_torch.utils.config import FitConfig
+
+    pmesh.initialize_distributed(device="cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    check(world == 2, f"parallel worker: {world} ranks, expected 2")
+    resolve_device("cuda")
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "card": torch.cuda.current_device()}
+
+    # One step of each factory against the single-process step.
+    cfg = FitConfig(targets_dir=str(ROOT / "assets" / "example_scene"),
+                    camera_npz=str(ROOT / "assets" / "example_scene"
+                                   / "cameras.npz"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        targets, masks, _, cams = load_dataset(cfg, device="cuda")
+    targets, masks = to_device(targets, "cuda"), to_device(masks, "cuda")
+    zeros = torch.zeros_like(masks)
+    raw = init_params(torch.Generator().manual_seed(seed), 800, 3000,
+                      device="cuda")
+    tx = make_optimizer(0.02)
+    views, rows = pmesh.make_mesh(2, 1), pmesh.make_mesh(1, 2)
+    pair_k = tiled.auto_pair_k(activate(raw), cams.view, cams.proj, 128, 128)
+    modes = {"accum": RenderConfig(mode="accum"),
+             "sorted": RenderConfig(mode="sorted", sorted_pair_k=pair_k),
+             "accum_binned_on": RenderConfig(mode="accum", accum_binned="on")}
+    errs, digests = {}, {}
+    for label, rc in modes.items():
+        rc = rc.replace(width=128, height=128, return_aux=True)
+        for ssim in (0.0, 0.2):
+            lc = LossConfig(ssim_weight=ssim)
+            s1, m1 = make_train_step(rc, lc, True, False)(
+                init_state(raw, tx), cams, targets, masks, zeros)
+            if ssim:
+                factories = {"sharded_rows_1x2": sharded.make_sharded_train_step(
+                    tx, rc, lc, True, False, rows, shard_rows=True)}
+            else:
+                factories = {
+                    "sharded": sharded.make_sharded_train_step(
+                        tx, rc, lc, True, False, views),
+                    "shardmap": sharded.make_shardmap_train_step(
+                        tx, rc, lc, True, False, views),
+                    **{f"overlapped{k}": sharded.make_overlapped_train_step(
+                        tx, rc, lc, True, False, views, n_chunks=k)
+                       for k in (1, 2, 3)}}
+            for name, step in factories.items():
+                s2, m2 = step(init_state(raw, tx), cams, targets, masks,
+                              zeros)
+                case = f"{label}/{name}/ssim{ssim}"
+                errs[case] = states_err(s1, m1, s2, m2)
+                digests[case] = params_digest(s2.raw)
+                check(errs[case]["loss"] <= 1 and errs[case]["leaves"] <= 1,
+                      f"rank {rank}: {case} against the single-process step: "
+                      f"{errs[case]} (in units of the tolerance)")
+    out["step_vs_single"] = errs
+    out["digests"] = digests
+    out["pair_k"] = pair_k
+    raw_sh = init_params(torch.Generator().manual_seed(seed), 800, 3000,
+                         use_sh=True, device="cuda")
+    fit_bytes = 4 * (sum(t.numel() for t in raw_sh.trainable().values())
+                     + len(sharded.MEAN_KEYS) + len(sharded.SUM_KEYS))
+    rc = modes["accum"].replace(width=128, height=128, return_aux=True)
+    lc = LossConfig(ssim_weight=0.2)
+    out["sh_rows_1x2_accum_ssim0.2_not_held"] = states_err(
+        *make_train_step(rc, lc, True, False)(
+            init_state(raw_sh, tx), cams, targets, masks, zeros),
+        *sharded.make_sharded_train_step(tx, rc, lc, True, False, rows,
+                                         shard_rows=True)(
+            init_state(raw_sh, tx), cams, targets, masks, zeros))
+    del raw, raw_sh
+
+    # Phase 8's 100k scene and views, data parallel over the two ranks.
+    n_s, side = 100_000, 512
+    raw_s = raw_from_gaussians(make_gaussians(
+        **scene_arrays(n_s, seed + 2), device="cuda"), capacity=n_s)
+    cams_s = cam.orbit_cameras(4, side, side, device="cuda")
+    targets_s = to_device(np.random.default_rng(seed).uniform(
+        0, 1, (4, side, side, 3)), "cuda")
+    masks_s = (targets_s.mean(dim=3) > 0.06).to(torch.float32)
+    zeros_s = torch.zeros_like(masks_s)
+    rc = RenderConfig(mode="accum", width=side, height=side, return_aux=True)
+    step = sharded.make_sharded_train_step(tx, rc, LossConfig(), True, False,
+                                           views)
+    state = init_state(raw_s, tx)
+
+    def one(_):
+        step(state, cams_s, targets_s, masks_s, zeros_s)
+
+    one(0)
+    torch.cuda.synchronize()
+    dist.barrier()
+    sharded.reset_allreduce()
+    times = []
+    for i in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        one(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ar = {k: v / 10 for k, v in sharded.allreduce.items()}
+    dist.barrier()
+    prof = profile_calls(one, 3)
+
+    def allreduce_alone_ms(nbytes: int) -> float:
+        """Median host ms of an all-reduce of `nbytes` alone: CUDA tensors
+        through gloo, the stream drained before and after each call."""
+        buf = torch.zeros(nbytes // 4, device="cuda")
+        alone = []
+        for _ in range(11):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            alone.append((time.perf_counter() - t0) * 1e3)
+        return sorted(alone)[5]
+
+    out["fit_allreduce_bytes"] = fit_bytes
+    out["fit_allreduce_alone_ms_median"] = allreduce_alone_ms(fit_bytes)
+    times.sort()
+    out["scale_100k"] = {
+        "views": 4, "views_per_rank": 2, "width": side, "height": side,
+        "capacity": n_s, "steps": 10, "step_ms_median": times[5],
+        "step_ms_mean": sum(times) / 10,
+        "allreduce_calls_per_step": ar["calls"],
+        "allreduce_bytes_per_step": ar["bytes"],
+        "allreduce_host_ms_per_step": ar["ms"],
+        "allreduce_alone_ms_median": allreduce_alone_ms(int(ar["bytes"])),
+        "device_busy_share_this_rank": prof["device_busy_share"],
+        "device_busy_ms_per_step_this_rank": prof["device_busy_ms_per_call"],
+        "wall_ms_per_step_profiled": prof["wall_ms_per_call"],
+        "params_sha256": params_digest(state.raw)}
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_steps_phase(tmp: Path, seed: int, single_100k: dict) -> dict:
+    """parallel_worker on two ranks: every one-step comparison held, the
+    ranks' parameters bit-identical in each case."""
+    out_dir = tmp / "parallel_steps"
+    out_dir.mkdir()
+    proc, wall = torchrun([str(ROOT / "chip_smoke.py"), "--parallel_worker",
+                           str(out_dir), "--seed", str(seed)])
+    log(proc.stdout.rstrip())
+    check(proc.returncode == 0, f"parallel steps: torch.distributed.run "
+          f"exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(2)]
+    check(all(r["backend"] == "gloo" for r in ranks),
+          "parallel steps: the ranks on one card did not pick gloo")
+    check(ranks[0]["digests"] == ranks[1]["digests"] and
+          ranks[0]["scale_100k"]["params_sha256"]
+          == ranks[1]["scale_100k"]["params_sha256"],
+          "parallel steps: the ranks' parameters differ after a step")
+    s0, s1 = ranks[0]["scale_100k"], ranks[1]["scale_100k"]
+    busy = [s0["device_busy_share_this_rank"],
+            s1["device_busy_share_this_rank"]]
+    out = {"command_wall_s": wall, "pair_k": ranks[0]["pair_k"],
+           "fit_allreduce_bytes": ranks[0]["fit_allreduce_bytes"],
+           "fit_allreduce_alone_ms_median": [
+               r["fit_allreduce_alone_ms_median"] for r in ranks],
+           "step_vs_single_worst": {k: max(r["step_vs_single"][c][k]
+                                           for r in ranks
+                                           for c in r["step_vs_single"])
+                                    for k in ("loss", "leaves", "psnr_diff")},
+           "step_vs_single": ranks[0]["step_vs_single"],
+           "sh_rows_1x2_accum_ssim0.2_not_held":
+               ranks[0]["sh_rows_1x2_accum_ssim0.2_not_held"],
+           "scale_100k": {
+               **{k: v for k, v in s0.items() if k != "params_sha256"},
+               "step_ms_median_rank1": s1["step_ms_median"],
+               "allreduce_alone_ms_median_rank1":
+                   s1["allreduce_alone_ms_median"],
+               "device_busy_share_rank1": s1["device_busy_share_this_rank"],
+               # Two processes' kernels time-slice the card: the card's
+               # busy share is about the sum of the two.
+               "device_busy_share_card": (None if None in busy
+                                          else sum(busy)),
+               "single_process_step_ms_median":
+                   single_100k["step_ms_median"]}}
+    log("parallel steps " + json.dumps(out))
+    return out
+
+
+def tiled_phase(npz: Path, tmp: Path) -> dict:
+    """render_tiled on the 100k served scene at 960x540 (the pose of phase
+    4), 2 and 7 bands on the one card named for each, sorted (K3) and
+    accum (K1) mode, against the whole-frame render at rtol / atol 2e-5
+    with the aux outputs; the tiled and whole-frame times (CUDA events);
+    then cli.render --shard_bands 2 against cli.render (<= 1 LSB)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tpu_gaussians_torch.cli import render as render_cli
+    from tpu_gaussians_torch.core.types import RenderConfig
+    from tpu_gaussians_torch.io.npz import load_gaussians_npz
+    from tpu_gaussians_torch.ops.dispatch import render
+    from tpu_gaussians_torch.parallel.tiled import render_tiled
+
+    width, height = 960, 540
+    g = load_gaussians_npz(npz, device="cuda")
+    c = served_camera(0.5, 0.2, 2.5, width, height)
+    out = {}
+    reset_launches()
+    with torch.no_grad():
+        for mode in ("sorted", "accum"):
+            cfg = RenderConfig(width=width, height=height, mode=mode,
+                               return_aux=True)
+            full = render(g, c, cfg)
+            row = {"full_ms": time_ms(lambda: render(g, c, cfg), reps=10)}
+            for n in (2, 7):
+                devices = ["cuda:0"] * n
+                tiled_out = render_tiled(g, c, cfg, devices=devices)
+                errs = []
+                for a, b in zip(tiled_out, full):
+                    check(a.shape == b.shape and bool(torch.allclose(
+                        a, b, rtol=2e-5, atol=2e-5)), f"render_tiled {mode} "
+                        f"{n} bands: differs from the whole frame (max abs "
+                        f"err {float((a - b).abs().max())})")
+                    errs.append(float((a - b).abs().max()))
+                row[f"bands{n}_max_abs_err"] = max(errs)
+                row[f"bands{n}_ms"] = time_ms(
+                    lambda: render_tiled(g, c, cfg, devices=devices),
+                    reps=10)
+            out[mode] = row
+    launches = read_launches()
+    check(launches["sorted_fwd"] > 0 and launches["splat_sep_fwd"] > 0
+          and all(v == 0 for k, v in launches.items()
+                  if k not in ("sorted_fwd", "splat_sep_fwd")),
+          f"render_tiled launched {launches}")
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    frames = {}
+    for bands in ("0", "2"):
+        d = tmp / f"render_bands{bands}"
+        with contextlib.redirect_stdout(io.StringIO()):
+            render_cli.main([str(npz), "--out_dir", str(d), "--width",
+                             str(width), "--height", str(height),
+                             "--shard_bands", bands, "--device", "cuda"])
+        frames[bands] = np.asarray(Image.open(d / "view_000.png"), np.int16)
+    lsb = int(np.abs(frames["0"] - frames["2"]).max())
+    check(lsb <= 1, f"cli.render --shard_bands 2: {lsb} LSB from cli.render")
+    out["cli_shard_bands2_max_lsb"] = lsb
+    log("tiled " + json.dumps(out))
+    return out
+
+
+def native_phase(g_fit, cams, tmp: Path) -> dict:
+    """The port's binding of the native CPU rasterizer: built with g++
+    here, the small scene of phase 6 (256x64, axis footprint) and the
+    flagship's fitted model (128x128, SH evaluated for the view) in both
+    modes against the port's plain renderer and the card's render,
+    within NATIVE_ATOL; its host ms a frame; gs_viewer for 3 frames."""
+    import numpy as np
+    import torch
+
+    from tpu_gaussians_torch import native
+    from tpu_gaussians_torch.core import camera as cam
+    from tpu_gaussians_torch.core.types import RenderConfig
+    from tpu_gaussians_torch.io.npz import save_gaussians_npz
+    from tpu_gaussians_torch.ops.dispatch import render
+    from tpu_gaussians_torch.ops.sh import eval_colors
+
+    t0 = time.perf_counter()
+    native.build()
+    import os
+    import platform
+
+    lscpu = subprocess.run(["lscpu"], capture_output=True, text=True,
+                           timeout=60).stdout
+    names = [line.split(":", 1)[1].strip() for line in
+             lscpu.splitlines() + Path("/proc/cpuinfo").read_text(
+                 errors="replace").splitlines()
+             if line.strip().lower().startswith("model name")]
+    # The host may hide its CPU's model; its architecture and core count
+    # are printed beside.
+    out = {"build_s": time.perf_counter() - t0,
+           "cpu": names[0] if names else "not reported by the host",
+           "cpu_arch": platform.machine(), "cpu_count": os.cpu_count()}
+    bg = (0.02, 0.02, 0.02)
+    small = small_scene()
+    cases = {"small_2000_256x64": (small, cam.orbit_cameras(
+        2, 256, 64, device="cuda")[0], 256, 64),
+        "flagship_fitted_128x128": (g_fit, cams[0], 128, 128)}
+    for name, (g, c, width, height) in cases.items():
+        alive = g.alive_mask() > 0.5
+        colors = torch.clamp(eval_colors(g.sh if g.use_sh else g.colors,
+                                         g.means, c.view), 0.0, 1.0)
+        args = (g.means[alive], g.scales[alive], colors[alive],
+                g.opacities[alive], c.view, c.proj)
+        for mode in ("accum", "sorted"):
+            kw = dict(width=width, height=height, background=bg,
+                      depth_sort=mode == "sorted", as_float=True)
+            rgb, alpha = native.render_native(*args, **kw)
+            host = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                native.render_native(*args, **kw)
+                host.append((time.perf_counter() - t1) * 1e3)
+            cfg = RenderConfig(width=width, height=height, mode=mode,
+                               background=bg, return_aux=True)
+            row = {"n": int(alive.sum()), "host_ms_median": sorted(host)[2]}
+            with torch.no_grad():
+                for impl in ("torch", "tiled"):
+                    img, a, _ = render(g, c, cfg.replace(impl=impl))
+                    err = max(float(np.abs(rgb - img.cpu().numpy()).max()),
+                              float(np.abs(alpha - a.cpu().numpy()).max()))
+                    row[f"max_abs_diff_vs_{impl}"] = err
+                    check(err <= NATIVE_ATOL, f"native {name} {mode}: "
+                          f"{err} from the port's {impl} render (atol "
+                          f"{NATIVE_ATOL})")
+            out[f"{name}_{mode}"] = row
+    npz = tmp / "small_scene.npz"
+    save_gaussians_npz(npz, small)
+    res = subprocess.run(
+        [str(native.viewer_path()), str(npz), "--width", "256", "--height",
+         "64", "--frames", "3", "--out_dir", str(tmp / "viewer_frames")],
+        capture_output=True, text=True, timeout=120)
+    check(res.returncode == 0 and "FPS" in res.stdout
+          and len(list((tmp / "viewer_frames").glob("frame_*.ppm"))) == 3,
+          f"gs_viewer: rc {res.returncode}\n{res.stdout}\n{res.stderr}")
+    out["gs_viewer"] = res.stdout.strip().splitlines()[-1]
+    log("native " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parallel_worker", default="", metavar="DIR",
+                    help="run as one rank of phase 20's two-rank checks "
+                         "(under torch.distributed.run), writing DIR/"
+                         "rank<r>.json")
     args = ap.parse_args()
 
     check((ROOT / "tpu_gaussians_torch" / "__init__.py").exists(),
@@ -2576,6 +3105,9 @@ def main() -> int:
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    if args.parallel_worker:
+        parallel_worker(Path(args.parallel_worker), args.seed)
+        return 0
 
     from tpu_gaussians_torch.cli.serve import (
         INTERACTIVE_KNOBS, RenderService, run_loop)
@@ -2982,6 +3514,22 @@ def main() -> int:
     mixed_check = mixed_route_check("500k_ewa_512x512", g_m, cams_s.view[0],
                                     cams_s.proj[0], side, args.seed)
     del g_m
+
+    # 20. parallel: the flagship fit as two ranks on the one card, one
+    # sharded step of each factory against the single-process step and
+    # phase 8's 100k scene over two ranks, render_tiled on phase 3's
+    # scene, the native CPU rasterizer
+    par_fit = parallel_fit_phase(Path(tmp.name), fit)
+    par_steps = parallel_steps_phase(Path(tmp.name), args.seed, scale_steps)
+    check(par_steps["fit_allreduce_bytes"]
+          == par_fit["allreduce_bytes_per_step"],
+          f"the 2-rank fit all-reduced {par_fit['allreduce_bytes_per_step']}"
+          f" B a step, its buffer is {par_steps['fit_allreduce_bytes']} B")
+    tiled_frames = tiled_phase(npz, Path(tmp.name))
+    native_frames = native_phase(g_fit, cams, Path(tmp.name))
+    log("parallel " + json.dumps({
+        "fit_2ranks": par_fit, "steps": par_steps, "tiled": tiled_frames,
+        "native": native_frames}))
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"],
@@ -2990,7 +3538,7 @@ def main() -> int:
         f"{clocks.stdout.strip()}")
     tmp.cleanup()
 
-    # 20. report
+    # 21. report
     def row(name, replaces, launches_, cases_, main_, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"tpu_gaussians_torch/csrc/{name}.cu",
@@ -3008,6 +3556,8 @@ def main() -> int:
     kernels = [row("sorted_fwd", "tpu_gaussians/ops/pallas/sorted.py:221",
                    launches["sorted_fwd"], cases, cases[0],
                    launches_fit_sorted=fit_s["launches"]["sorted_fwd"],
+                   launches_render_tiled=tiled_frames["launches"][
+                       "sorted_fwd"],
                    training_max_abs_err=max(
                        c["sorted_fwd_max_abs_err"] for c in bwd_cases),
                    training={c["case"]: {k: c[f"sorted_fwd_{k}"] for k in (
@@ -3035,6 +3585,9 @@ def main() -> int:
         extra["hmma_in_sass"] = hmma[name]
         if name == "splat_sep_fwd":
             extra["launches_axis_binned_preview"] = fit_ab["launches"][name]
+            extra["launches_render_tiled"] = tiled_frames["launches"][name]
+        extra["launches_2rank_fit"] = {
+            r: par_fit["launches"][r][name] for r in par_fit["launches"]}
         kernels.append(row(name, f"tpu_gaussians/ops/pallas/splat.py:{line}",
                            fit["launches"][name], sep, sep[0], **extra))
     kernels.append(row("sorted_bwd", "tpu_gaussians/ops/pallas/sorted.py:1013",

@@ -1,9 +1,10 @@
 """Port parity, package-level API: every package of `tpu_gaussians` that the
 port mirrors re-exports the same names, in the same `__all__`, from
 `tpu_gaussians_torch`, and each name resolves to the port's own object.
-(`parallel` comes with the parallel slice.) Each public function and class
-of the JAX modules of the interop, evaluation and checkpoint slice has a
-namesake of the same kind in the port's module of the same path."""
+Each public function and class of the JAX modules of the interop,
+evaluation and checkpoint slice, and of the parallel modules and the
+native binding, has a namesake of the same kind in the port's module of
+the same path."""
 
 import importlib
 import subprocess
@@ -13,10 +14,12 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-PACKAGES = ("", ".core", ".io", ".models", ".ops", ".fit")
+PACKAGES = ("", ".core", ".io", ".models", ".ops", ".fit", ".parallel")
 SLICE_MODULES = ("io.ply", "io.colmap", "io.checkpoint", "cli.convert",
                  "cli.make_cameras", "cli.eval", "cli.import_colmap",
-                 "cli.view", "utils.debug", "utils.profiling")
+                 "cli.view", "utils.debug", "utils.profiling",
+                 "parallel.mesh", "parallel.sharded", "parallel.tiled",
+                 "native")
 
 
 def public_callables(module):

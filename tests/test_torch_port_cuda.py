@@ -1417,3 +1417,106 @@ def test_interpret_mode_runs_the_plain_twins_on_cuda(cuda):
     torch.cuda.synchronize()
     assert splat_sep.launches["splat_sep_fwd"] == before["splat_sep_fwd"] + 1
     assert sorted_fwd.launches == before_k3 + 1
+
+
+def _raw_inputs(prefix, raw):
+    return {f"{prefix}/{k}": t.cpu().numpy() for k, t in vars(raw).items()
+            if t is not None}
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_match_the_single_step(cuda, tmp_path):
+    """The parallel tests' cases on two gloo ranks that share the card
+    (tests/torch_port_rank_worker.py; gloo stages the all-reduce through
+    the host): every sharded step against its factory's single-rank step
+    at tests/test_sharded.py's _assert_states_match tolerances (loss rtol
+    1e-5 / atol 1e-6, leaves rtol 2e-4 / atol 2e-6), the kernels (impl
+    "tiled") in the three modes among them, and both ranks' parameters
+    bit-identical."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tpu_gaussians_torch.models.gaussian_model import init_params
+
+    root = Path(__file__).resolve().parent.parent
+    inputs = {
+        **_raw_inputs("raw", init_params(torch.Generator().manual_seed(0),
+                                         24, 32, device="cpu")),
+        **_raw_inputs("fit_raw", init_params(
+            torch.Generator().manual_seed(4), 16, 24, device="cpu")),
+        "targets": np.random.default_rng(0).uniform(
+            size=(8, 32, 16, 3)).astype(np.float32),
+        "fit_targets": np.random.default_rng(1).uniform(
+            size=(8, 32, 16, 3)).astype(np.float32)}
+    np.savez(tmp_path / "in.npz", **inputs)
+    worker = root / "tests" / "torch_port_rank_worker.py"
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), str(tmp_path / "store"), str(r), "2",
+         str(tmp_path / "in.npz"), str(tmp_path), "cuda"], cwd=root,
+        env={**os.environ, "OMP_NUM_THREADS": "1"}, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out}"
+    res = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    leaves = ("means", "scales_raw", "opacities_raw", "colors_raw")
+    pairs = [(f"{f}/{m}/ssim{s}", f"{f}/single/ssim{s}")
+             for f in ("sharded", "shardmap", "overlapped1", "overlapped2",
+                       "overlapped4")
+             for m in ("views", "rows") for s in (0.0, 0.2)]
+    pairs += [(f"tiled_{mode}/{f}/views", f"tiled_{mode}/{f}/single")
+              for mode in ("accum_off", "accum_on", "sorted_off")
+              for f in ("sharded", "shardmap")]
+    for case, single in pairs:
+        np.testing.assert_allclose(res[0][f"{case}/metric/loss"],
+                                   res[0][f"{single}/metric/loss"],
+                                   rtol=1e-5, atol=1e-6, err_msg=case)
+        for leaf in leaves:
+            np.testing.assert_allclose(res[0][f"{case}/{leaf}"],
+                                       res[0][f"{single}/{leaf}"],
+                                       rtol=2e-4, atol=2e-6,
+                                       err_msg=f"{case} {leaf}")
+    for k in res[0]:
+        if not k.startswith("layout"):
+            np.testing.assert_array_equal(res[0][k], res[1][k], err_msg=k)
+    losses = res[0]["ten_steps/losses"]
+    assert losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["accum", "sorted"])
+def test_render_tiled_on_one_card_named_twice(cuda, mode):
+    """render_tiled with its bands on cuda:0 named twice (they render in
+    turn) and in 3 bands (50 rows are not divisible by 3) against the
+    whole-frame render through the same kernels, rtol / atol 2e-5 with the
+    aux outputs (tests/test_tiled_render.py). 3,000 gaussians overfill the
+    sorted tiles (pairs dropped at capacity): bands of whole tile rows drop
+    the same ones."""
+    from tpu_gaussians_torch.parallel.tiled import render_tiled
+
+    rng = np.random.default_rng(2)
+    g = gaussians_from_numpy(dict(
+        means=rng.uniform(-0.6, 0.6, (3000, 3)).astype(np.float32),
+        scales=rng.uniform(0.01, 0.1, (3000, 3)).astype(np.float32),
+        colors=rng.uniform(0, 1, (3000, 3)).astype(np.float32),
+        opacities=rng.uniform(0.05, 0.95, (3000,)).astype(np.float32)),
+        device=cuda)
+    c = tcam.orbit_cameras(4, 64, 50, device=cuda)[1]
+    cfg = RenderConfig(width=64, height=50, mode=mode, return_aux=True)
+    with torch.no_grad():
+        full = render(g, c, cfg)
+        for devices in (["cuda:0", "cuda:0"], [cuda] * 3):
+            tiled = render_tiled(g, c, cfg, devices=devices)
+            for a, b in zip(tiled, full):
+                assert a.shape == b.shape and a.device == b.device
+                torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)

@@ -328,8 +328,20 @@ def test_fit_refuses_unported_options_and_missing_card():
     cams = tcam.orbit_cameras(1, 16, 16, device="cpu")
     cfg = tconfig.FitConfig(width=16, height=16, iters=1, num_gaussians=10,
                             max_gaussians=16, num_view_shards=2)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # JAX's divisibility error, then (two views) no group of two ranks:
+    # the error names the launcher, and nothing runs on one process.
+    with pytest.raises(ValueError, match="must divide view count 1"):
         ttrainer.fit(cfg, targets, cams, device="cpu")
+    with pytest.raises(ValueError, match="must divide view count 1"):
+        jtrainer.fit(jconfig.FitConfig(
+            width=16, height=16, iters=1, num_gaussians=10,
+            max_gaussians=16, num_view_shards=2, impl="jnp"), targets,
+            jcam.orbit_cameras(1, 16, 16))
+    with pytest.raises(RuntimeError, match="torch.distributed.run "
+                       "--nproc_per_node 2 -m tpu_gaussians_torch.cli.fit"):
+        ttrainer.fit(cfg, np.zeros((2, 16, 16, 3), np.float32),
+                     tcam.orbit_cameras(2, 16, 16, device="cpu"),
+                     device="cpu")
     # the axis footprint's binned kernels (K7) are ported: it trains
     cfg = tconfig.FitConfig(width=16, height=16, iters=1, num_gaussians=10,
                             max_gaussians=16, accum_binned="on")

@@ -1,8 +1,8 @@
 """The port stands alone: no module of `tpu_gaussians_torch`, and not
 `chip_smoke.py`, imports JAX, the JAX package, orbax or optax; each module
-of the interop, evaluation and checkpoint slice imports alone in a fresh
-interpreter without them or matplotlib (which cli.view imports only when
-it runs)."""
+of the interop, evaluation and checkpoint slice, and of the parallel
+modules and the native binding, imports alone in a fresh interpreter
+without them or matplotlib (which cli.view imports only when it runs)."""
 
 import ast
 import subprocess
@@ -16,7 +16,9 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "tpu_gaussians", "orbax", "optax")
 SLICE_MODULES = ("io.ply", "io.colmap", "io.checkpoint", "cli.convert",
                  "cli.make_cameras", "cli.eval", "cli.import_colmap",
-                 "cli.view", "utils.debug", "utils.profiling")
+                 "cli.view", "utils.debug", "utils.profiling",
+                 "parallel.mesh", "parallel.sharded", "parallel.tiled",
+                 "native")
 
 
 def port_files():
@@ -48,10 +50,11 @@ def test_port_files_exist():
                      "tpu_gaussians_torch/kernels/sorted_bwd.py",
                      "tpu_gaussians_torch/kernels/splat_v2.py",
                      "tpu_gaussians_torch/kernels/binned.py",
-                     "tpu_gaussians_torch/ops/binned.py") + tuple(
-                         f"tpu_gaussians_torch/{m.replace('.', '/')}.py"
-                         for m in SLICE_MODULES):
+                     "tpu_gaussians_torch/ops/binned.py"):
         assert expected in names
+    for m in SLICE_MODULES:     # a module, or a package's __init__
+        path = f"tpu_gaussians_torch/{m.replace('.', '/')}"
+        assert f"{path}.py" in names or f"{path}/__init__.py" in names
 
 
 @pytest.mark.parametrize("path", port_files(),

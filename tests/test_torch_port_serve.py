@@ -155,6 +155,12 @@ def test_render_cli_writes_pngs(scene_npz, tmp_path):
                       "--width", "64", "--height", "32", "--mode", "accum",
                       "--device", "cpu"])
     assert Image.open(tmp_path / "accum" / "view_000.png").size == (64, 32)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        trender_cli.main([scene_npz, "--shard_bands", "2", "--device",
-                          "cpu"])
+    # --shard_bands: the frame as two row bands (on the CPU here)
+    trender_cli.main([scene_npz, "--out_dir", str(tmp_path / "bands"),
+                      "--width", "64", "--height", "32", "--mode", "accum",
+                      "--shard_bands", "2", "--device", "cpu"])
+    whole = np.asarray(Image.open(tmp_path / "accum" / "view_000.png"),
+                       np.int16)
+    bands = np.asarray(Image.open(tmp_path / "bands" / "view_000.png"),
+                       np.int16)
+    assert np.abs(whole - bands).max() <= 1

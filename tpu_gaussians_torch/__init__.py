@@ -7,8 +7,10 @@ render server (cli.serve), renderer (cli.render) and trainer (cli.fit) is
 ported: both render modes, both footprints, the tile-binned and the exact
 dense accumulation routes, down to a hand-written CUDA kernel for each of
 its Pallas kernels (`csrc/*.cu`); so are its interop (PLY, COLMAP import),
-evaluation, checkpoint/resume and debug and profiling modules. Still to
-port: `parallel/` and the `native/` binding (ROADMAP.md).
+evaluation, checkpoint/resume and debug and profiling modules, the parallel
+modules on torch.distributed (views and rows over ranks, row-band frames)
+and the binding of the native CPU rasterizer. Not ported: JAX's XLA
+compile cache (`utils/cache.py`; kernels/build.py caches the nvcc builds).
 
 Layout:
   core/      Gaussians, Camera, RenderConfig, camera math
@@ -20,6 +22,8 @@ Layout:
   csrc/      CUDA C++ kernel sources (sm_90a)
   models/    raw parameters at fixed capacity, activations
   fit/       loss, Adam step, densify/prune, trainer
+  parallel/  process groups, sharded train steps, row-band rendering
+  native/    ctypes binding of the C++ CPU rasterizer (g++ at first use)
   utils/     FitConfig, debug aids (interpret_mode), profiling
   cli/       fit / serve / render / eval / import_colmap / convert /
              make_cameras / view entry points

@@ -6,11 +6,18 @@
 Usage:
   python -m tpu_gaussians_torch.cli.fit --targets_dir assets/scene \
       --iters 300 [--device cuda]
+  # views sharded over N ranks (data parallel; ranks may share a card):
+  python -m torch.distributed.run --standalone --nproc_per_node N \
+      -m tpu_gaussians_torch.cli.fit --targets_dir assets/scene \
+      --num_view_shards N
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
+import sys
 from pathlib import Path
 
 import torch
@@ -18,6 +25,10 @@ import torch
 from tpu_gaussians_torch.core.types import resolve_device
 from tpu_gaussians_torch.fit.trainer import fit, load_dataset, write_artifacts
 from tpu_gaussians_torch.ops.binned import BINNED_MIN_N
+from tpu_gaussians_torch.parallel import sharded
+from tpu_gaussians_torch.parallel.mesh import (
+    initialize_distributed, rank_and_world)
+from tpu_gaussians_torch.utils.profiling import launch_counts
 from tpu_gaussians_torch.utils.config import FitConfig
 
 
@@ -112,25 +123,60 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sorted-mode per-gaussian tile budget "
                          "(0 = measured auto)")
     ap.add_argument("--num_view_shards", type=int, default=d.num_view_shards,
-                    help="shard the view batch over N devices (data parallel)")
+                    help="shard the view batch over N ranks (data "
+                         "parallel): launch N processes with `python -m "
+                         "torch.distributed.run --standalone "
+                         "--nproc_per_node N -m tpu_gaussians_torch.cli.fit "
+                         "... --num_view_shards N`")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return ap
 
 
+def params_digest(raw) -> str:
+    """sha256 of the parameters' bytes: equal on every rank of a sharded
+    fit."""
+    h = hashlib.sha256()
+    for name, t in sorted(vars(raw).items()):
+        if t is not None:
+            h.update(name.encode())
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def main(argv=None) -> None:
     args = vars(build_parser().parse_args(argv))
+    initialize_distributed(device=args["device"])
     device = resolve_device(args.pop("device"))
     config = FitConfig(**args)
+    rank, world = rank_and_world()
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"Using device: {name} (torch {torch.__version__})")
+    if rank == 0:
+        print(f"Using device: {name} (torch {torch.__version__})")
 
     targets, masks, depths, cameras = load_dataset(config, device=device)
     out_dir = Path(config.out_dir)
     result = fit(config, targets, cameras, masks=masks, depths=depths,
                  out_dir=out_dir, device=device)
     write_artifacts(out_dir, result, config)
-    print(f"Done in {result.wall_time_s:.1f}s. Outputs written to: {out_dir}")
+    if rank == 0:
+        print(f"Done in {result.wall_time_s:.1f}s. Outputs written to: "
+              f"{out_dir}")
+    if world > 1:
+        # One line a rank, written at once: the replicas' parameters, the
+        # kernels this rank launched and its share of the all-reduce.
+        steps = max(len(result.loss_log), 1)
+        line = f"rank {rank} of {world}: " + json.dumps({
+            "params_sha256": params_digest(result.raw),
+            "kernel_launches": launch_counts(),
+            "steps": len(result.loss_log),
+            "allreduce_calls_per_step": sharded.allreduce["calls"] / steps,
+            "allreduce_bytes_per_step": sharded.allreduce["bytes"] / steps,
+            "allreduce_host_ms_per_step": sharded.allreduce["ms"] / steps,
+            "wrote_out_dir": rank == 0})
+        sys.stdout.flush()
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
 
 
 if __name__ == "__main__":

@@ -4,6 +4,7 @@ counterpart of `tpu_gaussians.cli.render` (both compositing modes).
 Usage:
   python -m tpu_gaussians_torch.cli.render fitted.npz --out_dir renders \
       --width 960 --height 540 --mode sorted --num_views 8 [--device cuda]
+      [--shard_bands N]   # each frame as N row bands, round-robin on the cards
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from tpu_gaussians_torch.core.types import RenderConfig, resolve_device
 from tpu_gaussians_torch.io.image import save_image_png
 from tpu_gaussians_torch.io.npz import load_gaussians_npz
 from tpu_gaussians_torch.ops.dispatch import render
+from tpu_gaussians_torch.parallel.tiled import band_devices, render_tiled
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,18 +42,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--background", type=float, nargs=3,
                     default=[0.02, 0.02, 0.02])
     ap.add_argument("--shard_bands", type=int, default=0,
-                    help="Shard each frame's rows over this many devices "
-                         "(0 = single-device render; sharding comes with "
-                         "the parallel slice)")
+                    help="Render each frame as this many row bands, "
+                         "placed round-robin on the visible cards (or the "
+                         "CPU with --device cpu); 0 = one whole-frame render")
     return ap
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.shard_bands > 0:
-        raise NotImplementedError(
-            "--shard_bands comes with the parallel slice; use 0")
-
     device = resolve_device(args.device)
     g = load_gaussians_npz(args.npz, device=device)
     print(f"Loaded {g.capacity} gaussians from {args.npz}")
@@ -66,7 +64,15 @@ def main(argv=None) -> None:
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     with torch.no_grad():
-        images = render(g, cameras, config)
+        if args.shard_bands > 0:
+            devices = band_devices(args.shard_bands, device)
+            images = torch.stack([
+                render_tiled(g, cameras[i] if cameras.batched else cameras,
+                             config, devices=devices)
+                for i in range(cameras.num_views() if cameras.batched
+                               else 1)])
+        else:
+            images = render(g, cameras, config)
     if images.ndim == 3:
         images = images[None]
     for i, image in enumerate(images.cpu().numpy()):

@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from tpu_gaussians_torch.core.types import Camera, RenderConfig
+from tpu_gaussians_torch.core.types import Camera, Gaussians, RenderConfig
 from tpu_gaussians_torch.models.gaussian_model import RawParams, activate
 from tpu_gaussians_torch.ops.dispatch import render_accum, render_sorted
 
@@ -44,25 +44,33 @@ class LossConfig:
     ssim_weight: float = 0.0
 
 
-def loss_fn(
-    raw: RawParams,
+def render_views(
+    g: Gaussians,
     cameras: Camera,
-    targets: torch.Tensor,                # (V, H, W, 3)
-    masks: Optional[torch.Tensor],        # (V, H, W) or None
-    depths: Optional[torch.Tensor],       # (V, H, W) or None
     render_config: RenderConfig,
-    loss_config: LossConfig,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Scalar loss (differentiable in raw's leaves) and a metrics dict of
-    detached scalars. render_config.mode selects the compositing model."""
-    g = activate(raw)
+    row0: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Each view rendered in turn -> (pred (V,H,W,3), alpha (V,H,W), depth
+    (V,H,W), the binner's overflow counters summed over views). row0: the
+    row window [row0, row0 + height) of frames of proj_height rows
+    (ops/dispatch.render_accum)."""
     render_view = render_sorted if render_config.mode == "sorted" \
         else render_accum
     outs = [render_view(g, cameras.view[i], cameras.proj[i], render_config,
-                        return_stats=True)
+                        row0=row0, return_stats=True)
             for i in range(cameras.num_views())]
     pred, alpha, depth = (torch.stack([o[j] for o in outs]) for j in range(3))
+    stats = {k: sum(o[3][k] for o in outs).to(torch.float32) for k in STATS}
+    return pred, alpha, depth, stats
 
+
+def view_terms(
+    pred: torch.Tensor, alpha: torch.Tensor, depth: torch.Tensor,
+    targets: torch.Tensor, masks: Optional[torch.Tensor],
+    depths: Optional[torch.Tensor], loss_config: LossConfig,
+) -> Dict[str, torch.Tensor]:
+    """The per-view terms of whole frames, each (V,): loss_i ("per_view")
+    and its parts recon, silhouette, ssim and depth (zeros where off)."""
     recon = (pred - targets).abs().mean(dim=(1, 2, 3))        # (V,)
     per_view = recon
     zeros = torch.zeros_like(recon)
@@ -82,29 +90,58 @@ def loss_fn(
         d_max = depth.amax(dim=(1, 2), keepdim=True)
         dl = (depth / (d_max + 1e-6) - depths).abs().mean(dim=(1, 2))
         per_view = per_view + loss_config.depth_weight * dl
+    return {"per_view": per_view, "recon": recon, "silhouette": sil,
+            "ssim": ssim_v, "depth": dl}
 
+
+def regularizer(g: Gaussians, loss_config: LossConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(reg, n_alive): the opacity and scale means over alive gaussians."""
     alive = g.alive_mask()
     n_alive = torch.clamp(alive.sum(), min=1.0)
     mean_op = (g.opacities * alive).sum() / n_alive
     mean_scale = (g.scales * alive[:, None]).sum() / (n_alive * 3.0)
     reg = (loss_config.reg_opacity * mean_op
            + loss_config.reg_scale * mean_scale)
-    loss = per_view.mean() + reg
+    return reg, n_alive
+
+
+def loss_fn(
+    raw: RawParams,
+    cameras: Camera,
+    targets: torch.Tensor,                # (V, H, W, 3)
+    masks: Optional[torch.Tensor],        # (V, H, W) or None
+    depths: Optional[torch.Tensor],       # (V, H, W) or None
+    render_config: RenderConfig,
+    loss_config: LossConfig,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Scalar loss (differentiable in raw's leaves) and a metrics dict of
+    detached scalars. render_config.mode selects the compositing model."""
+    g = activate(raw)
+    pred, alpha, depth, stats = render_views(g, cameras, render_config)
+    terms = view_terms(pred, alpha, depth, targets, masks, depths,
+                       loss_config)
+    reg, n_alive = regularizer(g, loss_config)
+    loss = terms["per_view"].mean() + reg
 
     metrics = {
-        "loss": loss, "recon": recon.mean(), "silhouette": sil.mean(),
-        "depth": dl.mean(), "reg": reg, "psnr": psnr(pred, targets),
-        "ssim": ssim_v.mean(), "n_alive": n_alive,
+        "loss": loss, "recon": terms["recon"].mean(),
+        "silhouette": terms["silhouette"].mean(),
+        "depth": terms["depth"].mean(), "reg": reg,
+        "psnr": psnr(pred, targets), "ssim": terms["ssim"].mean(),
+        "n_alive": n_alive,
         # Binner overflow counters summed over views (zeros on the exact
         # accumulation paths).
-        **{f"binner_{k}": sum(o[3][k] for o in outs).to(torch.float32)
-           for k in STATS},
+        **{f"binner_{k}": v for k, v in stats.items()},
     }
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    mse = ((pred - target) ** 2).mean()
+    return psnr_of_mse(((pred - target) ** 2).mean())
+
+
+def psnr_of_mse(mse: torch.Tensor) -> torch.Tensor:
     return -10.0 * torch.log10(torch.clamp(mse, min=1e-10))
 
 

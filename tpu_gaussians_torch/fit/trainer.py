@@ -10,6 +10,15 @@ line), then segments between host events, the positional lr decay
 evaluated at each segment's start. Given an out_dir, it checkpoints every
 `checkpoint_every` steps and, with `resume`, restarts from the latest
 checkpoint there (io/checkpoint.py), appending to metrics.jsonl.
+
+With num_view_shards > 1 it runs as one rank of a torch.distributed group
+of exactly that many ranks (parallel/mesh.initialize_distributed; cli.fit
+is launched under `python -m torch.distributed.run`): each rank renders
+its share of the views through parallel/sharded's step, whose all-reduce
+keeps the parameters equal on every rank. Densify and prune then act the
+same on every rank (the jitter comes from a generator of the same seed);
+only rank 0 prints the log and writes out_dir, with a barrier after each
+write.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_gaussians_torch.core import camera as cam
 from tpu_gaussians_torch.core.types import (
@@ -38,6 +48,8 @@ from tpu_gaussians_torch.models.gaussian_model import (
     RawParams, activate, init_params, raw_from_gaussians)
 from tpu_gaussians_torch.ops.dispatch import render
 from tpu_gaussians_torch.ops.sorted import auto_pair_k
+from tpu_gaussians_torch.parallel.mesh import make_mesh, rank_and_world
+from tpu_gaussians_torch.parallel.sharded import make_sharded_train_step
 from tpu_gaussians_torch.utils.config import FitConfig, resolve_render_mode
 
 METRIC_KEYS = ("loss", "recon", "silhouette", "depth", "reg", "psnr",
@@ -68,19 +80,35 @@ def load_dataset(config: FitConfig, device: Device = "cuda"):
     if config.camera_npz:
         cameras = cam.load_cameras_npz(config.camera_npz, len(paths),
                                        device=device)
-        print("Using camera poses from camera_npz")
+        if rank_and_world()[0] == 0:
+            print("Using camera poses from camera_npz")
     else:
         cameras = cam.orbit_cameras(len(paths), config.width, config.height,
                                     device=device)
-        print("Using fallback orbit cameras (for best quality, provide camera_npz)")
+        if rank_and_world()[0] == 0:
+            print("Using fallback orbit cameras (for best quality, provide "
+                  "camera_npz)")
     return targets, masks, depths, cameras
 
 
-def _refuse_unported(config: FitConfig) -> None:
-    if config.num_view_shards > 1:
-        raise NotImplementedError(
-            "num_view_shards > 1 (views sharded over devices) is ported with "
-            "the parallel slice; use 1")
+def _barrier() -> None:
+    if rank_and_world()[1] > 1:
+        dist.barrier()
+
+
+def _check_group(config: FitConfig, v: int) -> None:
+    """The view count splits evenly, and a group of exactly
+    num_view_shards ranks is up (none when it is 1)."""
+    n = config.num_view_shards
+    if v % n != 0:
+        raise ValueError(f"num_view_shards={n} must divide view count {v}")
+    world = rank_and_world()[1]
+    if world != n:
+        raise RuntimeError(
+            f"num_view_shards={n} needs a torch.distributed group of "
+            f"exactly {n} ranks, found {world} (1 without a group): launch "
+            f"`python -m torch.distributed.run --nproc_per_node {n} -m "
+            f"tpu_gaussians_torch.cli.fit ... --num_view_shards {n}`")
 
 
 def fit(
@@ -100,9 +128,11 @@ def fit(
     draws for the densify event at iteration `it`) replace the draws from
     torch.Generator().manual_seed(config.seed), so that a test can start
     this package and the JAX one from identical arrays."""
-    _refuse_unported(config)
     dev = resolve_device(device)
     v = targets.shape[0]
+    _check_group(config, v)
+    rank = rank_and_world()[0]
+    say = print if rank == 0 else (lambda *a, **k: None)
     has_masks = masks is not None and config.silhouette_weight > 0.0
     has_depths = depths is not None and config.depth_weight > 0.0
     zeros = np.zeros((v, config.height, config.width), np.float32)
@@ -124,8 +154,8 @@ def fit(
             raise ValueError(
                 "--init_npz SH-ness must match --use_sh "
                 f"(init has sh={raw.use_sh}, flag use_sh={config.use_sh})")
-        print(f"Initialized {int(raw.num_alive())} gaussians from "
-              f"{config.init_npz} (capacity {capacity})")
+        say(f"Initialized {int(raw.num_alive())} gaussians from "
+            f"{config.init_npz} (capacity {capacity})")
     else:
         raw = init_params(gen, config.num_gaussians, capacity,
                           config.use_sh, use_quats=config.footprint == "ewa",
@@ -143,8 +173,8 @@ def fit(
         pair_k = auto_pair_k(activate(raw), cameras.view, cameras.proj,
                              config.width, config.height,
                              footprint=config.footprint)
-        print(f"sorted pair budget k={pair_k} (measured max rect, "
-              f"auto; override with --sorted_pair_k)")
+        say(f"sorted pair budget k={pair_k} (measured max rect, "
+            f"auto; override with --sorted_pair_k)")
     render_config = RenderConfig(
         width=config.width, height=config.height, impl=config.impl,
         footprint=config.footprint, mode=mode,
@@ -168,13 +198,25 @@ def fit(
     checkpointer = None
     start_iter = 0
     if out_dir is not None and (config.checkpoint_every > 0 or config.resume):
-        checkpointer = Checkpointer(Path(out_dir) / "checkpoints")
+        # Rank 0 makes the directory and alone saves; every rank restores
+        # the same checkpoint.
+        if rank == 0:
+            checkpointer = Checkpointer(Path(out_dir) / "checkpoints")
+        _barrier()
+        checkpointer = checkpointer or Checkpointer(
+            Path(out_dir) / "checkpoints")
         if config.resume and checkpointer.latest_step() is not None:
             start_iter, state, gen_state = checkpointer.restore(tx, dev)
             gen.set_state(gen_state)
-            print(f"Resumed from checkpoint at iter {start_iter}")
-    step_fn = make_train_step(render_config, loss_config, has_masks,
-                              has_depths)
+            say(f"Resumed from checkpoint at iter {start_iter}")
+    if config.num_view_shards > 1:
+        step_fn = make_sharded_train_step(
+            tx, render_config, loss_config, has_masks, has_depths,
+            make_mesh(config.num_view_shards, 1))
+        say(f"Sharding {v} views over {config.num_view_shards} ranks")
+    else:
+        step_fn = make_train_step(render_config, loss_config, has_masks,
+                                  has_depths)
 
     def means_lr_at(i: int) -> float:
         if config.means_lr_final >= 1.0 or config.iters <= 0:
@@ -214,21 +256,21 @@ def fit(
             rate = v * config.width * config.height * max(
                 it - last_log_it, 1) / max(now - last_log_t, 1e-9)
             last_log_t, last_log_it = now, it
-            print(f"iter {it:4d}  loss={lv:.6f}  N={n}  "
-                  f"{rate / 1e6:.1f} Mpix/s")
+            say(f"iter {it:4d}  loss={lv:.6f}  N={n}  "
+                f"{rate / 1e6:.1f} Mpix/s")
             dropped = float(rows[-1][METRIC_KEYS.index(
                 "binner_dropped_pairs")])
             clipped = float(rows[-1][METRIC_KEYS.index(
                 "binner_clipped_rect_pairs")])
             if not warned_lossy and (dropped > 0 or clipped > 0):
                 warned_lossy = True
-                print(f"WARNING: this step's render dropped work to "
-                      f"capacity/budget limits ({dropped:.0f} pairs at "
-                      f"tile capacity, {clipped:.0f} rect-budget "
-                      f"overlaps; conservative W_CULL extents in accum "
-                      f"mode). Counters are in metrics.jsonl; raise "
-                      f"tile capacity / use accum_binned=off if "
-                      f"exactness matters.")
+                say(f"WARNING: this step's render dropped work to "
+                    f"capacity/budget limits ({dropped:.0f} pairs at "
+                    f"tile capacity, {clipped:.0f} rect-budget "
+                    f"overlaps; conservative W_CULL extents in accum "
+                    f"mode). Counters are in metrics.jsonl; raise "
+                    f"tile capacity / use accum_binned=off if "
+                    f"exactness matters.")
 
         densify_fires = (config.densify_interval > 0
                          and it % config.densify_interval == 0)
@@ -254,7 +296,9 @@ def fit(
 
         if (checkpointer is not None and config.checkpoint_every > 0
                 and it % config.checkpoint_every == 0):
-            checkpointer.save(it, state, gen)
+            if rank == 0:
+                checkpointer.save(it, state, gen)
+            _barrier()
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -263,7 +307,7 @@ def fit(
     hist = (torch.stack(rows).cpu().numpy() if rows
             else np.zeros((0, len(METRIC_KEYS)), np.float32))
     loss_log = [float(x) for x in hist[:, 0]]
-    if out_dir is not None and config.metrics_jsonl and rows:
+    if out_dir is not None and config.metrics_jsonl and rows and rank == 0:
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         # A resumed fit appends the steps it ran to the earlier ones.
@@ -272,6 +316,7 @@ def fit(
             for i, row in enumerate(hist):
                 f.write(json.dumps({"step": start_iter + i + 1, **{
                     k: float(x) for k, x in zip(METRIC_KEYS, row)}}) + "\n")
+    _barrier()
     final = state.raw.with_trainable(
         {k: t.detach() for k, t in state.raw.trainable().items()})
     return FitResult(raw=final, loss_log=loss_log, cameras=cameras,
@@ -280,7 +325,11 @@ def fit(
 
 def write_artifacts(out_dir: Path, result: FitResult,
                     config: FitConfig) -> None:
-    """Emit the reference's artifacts (fit_multiview_stub.py:339-380)."""
+    """Emit the reference's artifacts (fit_multiview_stub.py:339-380); in
+    a sharded fit rank 0 writes them, and every rank must call this."""
+    if rank_and_world()[0] != 0:
+        _barrier()
+        return
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     save_raw_npz(out_dir / "gaussians_fitted.npz", result.raw)
@@ -292,3 +341,4 @@ def write_artifacts(out_dir: Path, result: FitResult,
     with torch.no_grad():
         pred0 = render(activate(result.raw), cam0, render_config)
     im.save_image_png(out_dir / "preview_view0.png", pred0.cpu().numpy())
+    _barrier()

@@ -11,6 +11,7 @@ EMA, model_viewer_main.cpp:243-251):
   A trace with no device track (a CPU run) gives [], never host events
   under a device name.
 - `StepTimer`: EMA wall-clock per-step timer + pixels/s counter.
+- `launch_counts()`: every kernel wrapper's launches in this process.
 """
 
 from __future__ import annotations
@@ -108,3 +109,13 @@ class StepTimer:
         if self.step_s is None or self.pixels_per_step == 0:
             return None
         return self.pixels_per_step / self.step_s
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process, by kernel."""
+    from tpu_gaussians_torch.kernels import (
+        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2)
+
+    return {"sorted_fwd": sorted_fwd.launches,
+            "sorted_bwd": sorted_bwd.launches, **splat_sep.launches,
+            **splat_v2.launches, **binned.launches, **splat_v1.launches}
