@@ -911,7 +911,10 @@ def profile_calls(fn, calls: int, pad: float = PROFILE_SHORT_PAD_S) -> dict:
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0
-            and "#" not in e.key]          # not a range, e.g. Adam.step's
+            # Not a range (`record_function`: Adam.step's, the program's
+            # spans), whose device time is its whole range's. A '#' in
+            # the key marks no range: kernels named by a lambda hold one.
+            and not e.is_user_annotation]
     rows.sort(key=lambda r: -r["ms_per_call"])
     busy = sum(r["ms_per_call"] for r in rows)
     # Every row of the port's own kernels, which "top" may cut off: ms and

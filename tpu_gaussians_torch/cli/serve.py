@@ -39,6 +39,7 @@ from tpu_gaussians_torch.core.types import (
     Camera, RenderConfig, resolve_device, to_device)
 from tpu_gaussians_torch.io.npz import load_gaussians_npz
 from tpu_gaussians_torch.ops.dispatch import render
+from tpu_gaussians_torch.utils.profiling import annotate
 
 # The interactive preset's sorted-path forward-quality knobs: pair budget
 # 8, early exit at T 1e-3, tile capacity 1024.
@@ -85,7 +86,10 @@ class RenderService:
     """Holds the device-resident model and renders frames on demand.
 
     Renders are serialised by a lock: the server's threads share one
-    device, and `frames` counts every frame rendered."""
+    device, and `frames` counts every frame rendered. Under a profiler a
+    frame is the span `gs.serve.frame`, and its time in `render_tensor`
+    the spans `gs.serve.lock_wait` (the queue for the lock) and
+    `gs.serve.render` (camera, render and quantise, under the lock)."""
 
     def __init__(self, npz_path: str, impl: str = "auto", fovy: float = 60.0,
                  preset: str = "interactive", device: str = "cuda"):
@@ -130,17 +134,24 @@ class RenderService:
         for v in (yaw, pitch, radius):
             if not math.isfinite(v):
                 raise ValueError(f"camera parameters must be finite, got {v}")
-        with self._lock, torch.no_grad():
-            img = render(self.gaussians,
-                         self.camera(yaw, pitch, radius, width, height),
-                         self.config(width, height, mode))
-            self.frames += 1
-            return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+        with annotate("gs.serve.lock_wait"):
+            self._lock.acquire()
+        try:
+            with annotate("gs.serve.render"), torch.no_grad():
+                img = render(self.gaussians,
+                             self.camera(yaw, pitch, radius, width, height),
+                             self.config(width, height, mode))
+                self.frames += 1
+                return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+        finally:
+            self._lock.release()
 
     def render_frame(self, yaw: float, pitch: float, radius: float,
                      width: int, height: int, mode: str) -> np.ndarray:
-        return self.render_tensor(yaw, pitch, radius, width, height,
-                                  mode).cpu().numpy()
+        """One frame fetched to the host; the span `gs.serve.frame`."""
+        with annotate("gs.serve.frame", root=True):
+            return self.render_tensor(yaw, pitch, radius, width, height,
+                                      mode).cpu().numpy()
 
 
 def encode_frame(img: np.ndarray, fmt: str, quality: int = 90,

@@ -21,6 +21,7 @@ import torch
 from tpu_gaussians_torch.core.types import Camera, RenderConfig
 from tpu_gaussians_torch.fit.loss import LossConfig, loss_fn
 from tpu_gaussians_torch.models.gaussian_model import RawParams
+from tpu_gaussians_torch.utils.profiling import annotate
 
 Optimizer = Callable[[Dict[str, torch.Tensor]], torch.optim.Adam]
 
@@ -85,21 +86,23 @@ def make_train_step(render_config: RenderConfig, loss_config: LossConfig,
              masks: torch.Tensor, depths: torch.Tensor,
              means_lr_scale: float = 1.0
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        leaves = state.raw.trainable()
-        state.opt.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state.raw, cameras, targets,
-                                masks if has_masks else None,
-                                depths if has_depths else None,
-                                render_config, loss_config)
-        loss.backward()
-        for t in leaves.values():
-            if t.grad is None:      # a leaf the loss did not reach
-                t.grad = torch.zeros_like(t)
-        gnorm = torch.linalg.vector_norm(leaves["means"].grad, dim=1)
-        adam_update(state, means_lr_scale)
-        state.grad_norm_accum += gnorm
-        state.grad_steps += 1
-        metrics["grad_norm_mean"] = gnorm.mean()
-        return state, metrics
+        with annotate("gs.fit.step", root=True):
+            leaves = state.raw.trainable()
+            state.opt.zero_grad(set_to_none=True)
+            loss, metrics = loss_fn(state.raw, cameras, targets,
+                                    masks if has_masks else None,
+                                    depths if has_depths else None,
+                                    render_config, loss_config)
+            with annotate("gs.fit.backward"):
+                loss.backward()
+            for t in leaves.values():
+                if t.grad is None:      # a leaf the loss did not reach
+                    t.grad = torch.zeros_like(t)
+            gnorm = torch.linalg.vector_norm(leaves["means"].grad, dim=1)
+            adam_update(state, means_lr_scale)
+            state.grad_norm_accum += gnorm
+            state.grad_steps += 1
+            metrics["grad_norm_mean"] = gnorm.mean()
+            return state, metrics
 
     return step

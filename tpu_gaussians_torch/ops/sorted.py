@@ -32,6 +32,7 @@ from tpu_gaussians_torch.ops.binning import (
     EXIT_T, K_MIN, NBS, TH, TWC, _round_up, bin_pairs_2d, k_pairs,
     tile_rects)
 from tpu_gaussians_torch.ops.common import SplatInputs, prepare_splats
+from tpu_gaussians_torch.utils.profiling import annotate
 
 
 def pack_gdata(s: SplatInputs) -> torch.Tensor:
@@ -71,8 +72,9 @@ class _SortedCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gdense, cnt, tiles_x: int, axis: bool, exit_t: float):
-        acc, chunks = sorted_tiles(gdense, cnt, tiles_x, axis=axis,
-                                   exit_t=exit_t)
+        with annotate("gs.composite.fwd"):
+            acc, chunks = sorted_tiles(gdense, cnt, tiles_x, axis=axis,
+                                       exit_t=exit_t)
         ctx.save_for_backward(gdense, cnt, acc, chunks)
         ctx.tiles_x, ctx.axis = tiles_x, axis
         ctx.mark_non_differentiable(chunks)
@@ -81,9 +83,10 @@ class _SortedCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_acc, _):
         gdense, cnt, acc, chunks = ctx.saved_tensors
-        raw = sorted_bwd(gdense, cnt, acc, g_acc.contiguous(), chunks,
-                         ctx.tiles_x, ctx.axis)
-        return moment_postpass(gdense, raw), None, None, None, None
+        with annotate("gs.composite.bwd"):
+            raw = sorted_bwd(gdense, cnt, acc, g_acc.contiguous(), chunks,
+                             ctx.tiles_x, ctx.axis)
+            return moment_postpass(gdense, raw), None, None, None, None
 
 
 def crop_tiled_acc(acc: torch.Tensor, tiles_y: int, tiles_x: int,
@@ -138,15 +141,17 @@ def tile_lists(s: SplatInputs, z_cam: torch.Tensor, height: int, width: int,
     tiles_x = _round_up(width, TWC) // TWC
     tiles_y = _round_up(height, TH) // TH
     cap = default_band_capacity(n, band_capacity)
-    with torch.no_grad():
-        slots, cnt, stats = bin_pairs_2d(
-            s.px, s.py, s.sigma_x, s.sigma_y, s.op_eff, z_cam,
-            tiles_x, tiles_y, cap, width, height, k=pair_k)
-    # index_select's backward is an index_add_ of the slot rows into the
-    # gaussians' (atomics on the card). Indexing with [] would take torch's
-    # sorted index_put backward, which walks each gaussian's duplicates in
-    # one thread: the dead row n holds every empty slot.
-    gdense = torch.index_select(pack_gdata(s), 0, slots)
+    with annotate("gs.binner"):
+        with torch.no_grad():
+            slots, cnt, stats = bin_pairs_2d(
+                s.px, s.py, s.sigma_x, s.sigma_y, s.op_eff, z_cam,
+                tiles_x, tiles_y, cap, width, height, k=pair_k)
+        # index_select's backward is an index_add_ of the slot rows into
+        # the gaussians' (atomics on the card; a trace names its node
+        # IndexSelectBackward0). Indexing with [] would take torch's sorted
+        # index_put backward, which walks each gaussian's duplicates in one
+        # thread: the dead row n holds every empty slot.
+        gdense = torch.index_select(pack_gdata(s), 0, slots)
     return gdense, cnt, tiles_x, tiles_y, stats
 
 

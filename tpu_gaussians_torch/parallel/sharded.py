@@ -46,6 +46,7 @@ from tpu_gaussians_torch.fit.step import Optimizer, TrainState, adam_update
 from tpu_gaussians_torch.models.gaussian_model import activate
 from tpu_gaussians_torch.parallel.mesh import (
     ROW_AXIS, VIEW_AXIS, Mesh, band_rows, view_sharding)
+from tpu_gaussians_torch.utils.profiling import annotate
 
 allreduce = {"calls": 0, "bytes": 0, "ms": 0.0}
 
@@ -141,63 +142,66 @@ def _make_step(render_config: RenderConfig, loss_config: LossConfig,
              masks: torch.Tensor, depths: torch.Tensor,
              means_lr_scale: float = 1.0
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        v = targets.shape[0]
-        if v % n_views:
-            raise ValueError(f"{v} views do not split into {n_views} equal "
-                             "view shards")
-        shard3, shard4 = view_sharding(mesh, 3), view_sharding(mesh, 4)
-        view, proj = shard3.local(cameras.view), shard3.local(cameras.proj)
-        targets, masks, depths = (shard4.local(targets), shard3.local(masks),
-                                  shard3.local(depths))
-        v_local = targets.shape[0]
-        k = max(1, min(n_chunks, v_local))
-        while v_local % k:
-            k -= 1                  # equal chunks: the mean of chunk means
-        cv = v_local // k
-        leaves = state.raw.trainable()
-        names = list(leaves)
-        pending = []
-        for c in range(k):
-            sl = slice(c * cv, (c + 1) * cv)
-            loss_c, local, reg, n_alive = chunk_loss(
-                state.raw, view[sl], proj[sl], targets[sl], masks[sl],
-                depths[sl])
-            grads = torch.autograd.grad(loss_c, [leaves[n] for n in names],
-                                        allow_unused=True)
-            buf = torch.cat(
-                [(torch.zeros_like(leaves[n]) if gr is None else gr).reshape(-1)
-                 for n, gr in zip(names, grads)]
-                + [local[m].detach().reshape(1).to(torch.float32)
-                   for m in MEAN_KEYS + SUM_KEYS])
-            # Chunk c's all-reduce runs while chunk c + 1 renders.
-            pending.append((buf, _all_reduce(buf, mesh.group,
-                                             async_op=True)))
-        for _, work in pending:
-            if work is not None:
-                _wait(work)
-        total = pending[0][0] if k == 1 else torch.stack(
-            [b for b, _ in pending]).sum(0)
-        n_grad = total.numel() - len(MEAN_KEYS) - len(SUM_KEYS)
-        grad_flat = total[:n_grad] * (grad_scale / k)
-        means_ = total[n_grad:n_grad + len(MEAN_KEYS)] * (mean_scale / k)
-        sums = total[n_grad + len(MEAN_KEYS):] * sum_scale
-        at = 0
-        for n in names:
-            t = leaves[n]
-            t.grad = grad_flat[at:at + t.numel()].view_as(t).clone()
-            at += t.numel()
-        gnorm = torch.linalg.vector_norm(leaves["means"].grad, dim=1)
-        adam_update(state, means_lr_scale)
-        state.grad_norm_accum += gnorm
-        state.grad_steps += 1
-        m = dict(zip(MEAN_KEYS, means_))
-        metrics = {
-            "loss": m["data"] + reg.detach(), "recon": m["recon"],
-            "silhouette": m["silhouette"], "depth": m["depth"],
-            "reg": reg.detach(), "psnr": psnr_of_mse(m["mse"]),
-            "ssim": m["ssim"], "n_alive": n_alive.detach(),
-            **dict(zip(SUM_KEYS, sums)), "grad_norm_mean": gnorm.mean()}
-        return state, metrics
+        with annotate("gs.fit.step", root=True):
+            v = targets.shape[0]
+            if v % n_views:
+                raise ValueError(f"{v} views do not split into {n_views} "
+                                 "equal view shards")
+            shard3, shard4 = view_sharding(mesh, 3), view_sharding(mesh, 4)
+            view, proj = shard3.local(cameras.view), shard3.local(cameras.proj)
+            targets, masks, depths = (shard4.local(targets),
+                                      shard3.local(masks),
+                                      shard3.local(depths))
+            v_local = targets.shape[0]
+            k = max(1, min(n_chunks, v_local))
+            while v_local % k:
+                k -= 1                  # equal chunks: the mean of chunk means
+            cv = v_local // k
+            leaves = state.raw.trainable()
+            names = list(leaves)
+            pending = []
+            for c in range(k):
+                sl = slice(c * cv, (c + 1) * cv)
+                loss_c, local, reg, n_alive = chunk_loss(
+                    state.raw, view[sl], proj[sl], targets[sl], masks[sl],
+                    depths[sl])
+                with annotate("gs.fit.backward"):
+                    grads = torch.autograd.grad(
+                        loss_c, [leaves[n] for n in names], allow_unused=True)
+                buf = torch.cat(
+                    [(torch.zeros_like(leaves[n]) if gr is None
+                      else gr).reshape(-1) for n, gr in zip(names, grads)]
+                    + [local[m].detach().reshape(1).to(torch.float32)
+                       for m in MEAN_KEYS + SUM_KEYS])
+                # Chunk c's all-reduce runs while chunk c + 1 renders.
+                pending.append((buf, _all_reduce(buf, mesh.group,
+                                                 async_op=True)))
+            for _, work in pending:
+                if work is not None:
+                    _wait(work)
+            total = pending[0][0] if k == 1 else torch.stack(
+                [b for b, _ in pending]).sum(0)
+            n_grad = total.numel() - len(MEAN_KEYS) - len(SUM_KEYS)
+            grad_flat = total[:n_grad] * (grad_scale / k)
+            means_ = total[n_grad:n_grad + len(MEAN_KEYS)] * (mean_scale / k)
+            sums = total[n_grad + len(MEAN_KEYS):] * sum_scale
+            at = 0
+            for n in names:
+                t = leaves[n]
+                t.grad = grad_flat[at:at + t.numel()].view_as(t).clone()
+                at += t.numel()
+            gnorm = torch.linalg.vector_norm(leaves["means"].grad, dim=1)
+            adam_update(state, means_lr_scale)
+            state.grad_norm_accum += gnorm
+            state.grad_steps += 1
+            m = dict(zip(MEAN_KEYS, means_))
+            metrics = {
+                "loss": m["data"] + reg.detach(), "recon": m["recon"],
+                "silhouette": m["silhouette"], "depth": m["depth"],
+                "reg": reg.detach(), "psnr": psnr_of_mse(m["mse"]),
+                "ssim": m["ssim"], "n_alive": n_alive.detach(),
+                **dict(zip(SUM_KEYS, sums)), "grad_norm_mean": gnorm.mean()}
+            return state, metrics
 
     return step
 

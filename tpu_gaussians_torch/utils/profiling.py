@@ -5,7 +5,32 @@ EMA, model_viewer_main.cpp:243-251):
 - `trace(logdir)`: context manager around torch.profiler that writes a
   Chrome trace (`trace-<ns>.json`, chrome://tracing or Perfetto) of the
   work inside; it records the card's kernels when CUDA is available.
-- `annotate(name)`: a named region in such a trace (record_function).
+- `annotate(name, root=False)`: a span, the program's one tracing
+  facility, placed at its layer boundaries (`gs.fit.step`,
+  `gs.serve.frame`, `gs.stage`, `gs.binner`, ...). When no profiler runs
+  (`torch.autograd.profiler._is_profiler_enabled`, a module flag that
+  every torch.profiler session sets whatever its activities) it returns
+  one shared no-op context manager: no `record_function`, no clock read,
+  nothing recorded. While a profiler runs, the span
+  - opens `record_function(name)`, so a trace with CPU activity holds it
+    as a range and correlates every kernel launched inside it to it (a
+    profiler records ranges on the thread that started it and on the
+    autograd engine's threads, which inherit its state; the spans of
+    other threads, such as a server's clients, are in the buffer alone);
+  - appends a `Span` record to a bounded in-memory buffer when it closes:
+    its name, thread, start and end by `time.time_ns()` read just outside
+    the range's own (the clock of the Chrome trace's `ts` plus
+    `baseTimeNanoseconds / 1000`), its own id, its parent (the innermost
+    span open on the same thread when it opened) and its root's id.
+  A root (`root=True`: a train step, a served frame) gives its own id to
+  every span opened under it on its thread. A span opened on a thread with
+  no open span of its own, such as the autograd engine's device threads
+  (the card's backward; a CPU backward runs on the caller's thread), has
+  no parent and no root: no reader needs one, as the engine's spans are
+  read by range name in a trace. The trace needs no second writer:
+  `trace()` exports the spans' ranges with everything else.
+- `spans()`: the buffer's records, oldest first (at most `SPAN_BUFFER`;
+  records are appended as spans close).
 - `load_trace_events(logdir)` / `device_program_times_us(fn, prefix)`:
   the device kernel events of the newest trace, and their durations.
   A trace with no device track (a CPU run) gives [], never host events
@@ -16,13 +41,17 @@ EMA, model_viewer_main.cpp:243-251):
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
+import threading
 import time
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Iterator, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # torch.profiler's Chrome-trace categories of work that ran on the card.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -46,8 +75,66 @@ def trace(logdir: str) -> Iterator[None]:
             str(Path(logdir) / f"trace-{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    return torch.profiler.record_function(name)
+class Span(NamedTuple):
+    name: str
+    thread: int                 # threading.get_ident() of the opening thread
+    start_ns: int               # time.time_ns(), the trace's clock
+    end_ns: int
+    id: int
+    parent: Optional[int]       # id of the enclosing span on the same thread
+    root: Optional[int]         # id of the step or frame it belongs to
+
+
+SPAN_BUFFER = 100_000
+_spans: "collections.deque[Span]" = collections.deque(maxlen=SPAN_BUFFER)
+_span_ids = itertools.count(1)
+_open = threading.local()       # .stack: this thread's open _Span objects
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "is_root", "rf", "t0", "id", "parent", "root")
+
+    def __init__(self, name: str, is_root: bool):
+        self.name, self.is_root = name, is_root
+
+    def __enter__(self) -> "_Span":
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.id = next(_span_ids)
+        if stack:
+            self.parent, self.root = stack[-1].id, stack[-1].root
+        else:
+            self.parent = self.root = None
+        if self.is_root:
+            self.root = self.id
+        stack.append(self)
+        self.rf = torch.profiler.record_function(self.name)
+        self.t0 = time.time_ns()
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.rf.__exit__(*exc)
+        t1 = time.time_ns()
+        _open.stack.pop()
+        _spans.append(Span(self.name, threading.get_ident(), self.t0, t1,
+                           self.id, self.parent, self.root))
+
+
+def annotate(name: str, root: bool = False):
+    """A span named `name` (see the module docstring): the shared no-op
+    unless a profiler runs. root: a step or frame, whose id the spans
+    under it carry."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, root)
+
+
+def spans() -> List[Span]:
+    """Every span recorded while a profiler ran, oldest close first."""
+    return list(_spans)
 
 
 def load_trace_events(logdir: str):
