@@ -37,6 +37,15 @@ Phases, each of which fails the run by raising:
               and a small scene through render(impl="tiled") against the
               plain renderer in both modes and both footprints (EWA accum
               through K5)
+ 6b. stage    the per-gaussian stage's forward and backward kernels against
+              their plain twins at 100k EWA SH3 and 1M axis SH1 gaussians,
+              1920x1080 (stage_case): each value's error against float64
+              within 4x the f32 twin's, bit-identical across two launches;
+              event and device ms beside the plain twins', the plain
+              composition's under autograd and the byte bound. Every fit
+              phase below also counts the stage's launches exactly: once a
+              rendered view forward and once a view backward (the sorted
+              fits also once for each of auto_pair_k's views)
   7. fit      cli.fit.main on cuda with the flagship recipe (example scene,
               150 iterations, --use_sh, 800 gaussians, 128x128, capacity
               3000): loss.txt has 150 lines and its last loss is under half
@@ -384,6 +393,7 @@ PORT_KERNELS = {f"{k}_kernel" for k in (
     "sorted_fwd", "sorted_bwd", "splat_sep_fwd", "splat_sep_bwd",
     "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd",
     "binned_sep_fwd", "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd",
+    "stage_fwd", "stage_bwd",
     "slice_sum", "segment_sum", "splat_sep_bwd_sum", "splat_v2_fwd_sum")}
 FIT_ARGS = ["--targets_dir", "assets/example_scene", "--camera_npz",
             "assets/example_scene/cameras.npz", "--iters", "150", "--use_sh",
@@ -881,6 +891,127 @@ def kernel_case(name, g, width, height, knobs, reps):
     return case
 
 
+def stage_err(x, ref, rows: bool) -> float:
+    """Worst error of x against ref (float64), relative to the largest
+    |ref| of its field (rows: each of the 8 rows and each feats column) or
+    of its gaussian (gradients: the gaussian's largest of that leaf), as
+    tests/test_torch_port_cuda.py measures it."""
+    ref = ref.double()
+    if rows:
+        scale = ref.abs().amax(dim=1 if ref.shape[0] == 8 else 0,
+                               keepdim=True)
+    else:
+        n = ref.shape[0]
+        scale = ref.abs().reshape(n, -1).amax(dim=1).reshape(
+            (n,) + (1,) * (ref.ndim - 1))
+    return float(((x.double() - ref).abs() / scale.clamp(min=1e-30)).max())
+
+
+def stage_case(name: str, n: int, ewa: bool, sh_k: int, seed: int,
+               reps: int = 20) -> dict:
+    """The per-gaussian stage's kernels against their plain twins on the
+    benchmark's kind of scene (phase 3's generator, N(0,1) quaternions, SH
+    DC U(0,1) and higher rows N(0,0.1), a tenth dead) for view 1 of 4
+    orbit cameras at 1920x1080: the forward, then the backward on a seeded
+    N(0,1) cotangent of every output, strided as the sorted route's gather
+    hands it back (columns of one (N, 16) buffer). Each value's error
+    against a float64 evaluation of the twin's formulas within 4 times the
+    f32 twin's own worst error plus 1e-6 (tests/test_torch_port_cuda.py's
+    rule), and bit for bit across two launches. Timed: each kernel (CUDA
+    events, and its device time by torch.profiler), its plain twin, and
+    the stage's plain composition under autograd, forward and backward
+    (the path before the kernels); beside the bound, the bytes the stage
+    must read and write at 3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from tpu_gaussians_torch.core import camera as cam
+    from tpu_gaussians_torch.kernels import stage
+
+    rng = np.random.default_rng(seed)
+    arr = scene_arrays(n, seed)
+    sh = rng.normal(0.0, 0.1, (n, sh_k, 3))
+    sh[:, 0] = arr["colors"]
+    host = (arr["means"], arr["scales"],
+            rng.normal(size=(n, 4)) if ewa else None, sh, arr["opacities"],
+            rng.uniform(size=n) > 0.1)
+    width, height = 1920, 1080
+    c = cam.orbit_cameras(4, width, height, device="cuda")[1]
+    ins = [None if a is None else torch.from_numpy(
+        np.asarray(a, np.float32)).cuda() for a in host] + [c.view, c.proj]
+    ins64 = [None if t is None else t.double() for t in ins]
+    args = (width, height, ewa, sh_k)
+    buf = torch.randn((n, 16), generator=torch.Generator().manual_seed(
+        seed)).cuda()
+    cot = [buf[:, k] for k in range(8)] + [buf[:, 8:13]]
+    needs = [t is not None for t in ins[:5]]
+
+    out = {"case": name, "n": n, "footprint": "ewa" if ewa else "axis",
+           "sh_rows": sh_k, "width": width, "height": height}
+    fwd = [stage._fwd(ins, *args) for _ in range(2)]
+    bwd = [stage._bwd(ins, *args, cot, needs) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*fwd)),
+          f"stage {name}: two forward launches differ")
+    check(all((a is None and b is None) or torch.equal(a, b)
+              for a, b in zip(*bwd)),
+          f"stage {name}: two backward launches differ")
+    twins = {"fwd": stage.stage_fwd_plain(*ins, width, height, ewa),
+             "bwd": stage.stage_bwd_plain(*ins, width, height, ewa, cot,
+                                          needs)}
+    exact = {"fwd": stage.stage_fwd_plain(*ins64, width, height, ewa),
+             "bwd": stage.stage_bwd_plain(
+                 *ins64, width, height, ewa,
+                 [g.double() for g in cot], needs)}
+    for kind_, got in (("fwd", fwd[0]), ("bwd", bwd[0])):
+        errs, abs_errs = [], []
+        for k, (a, b, r) in enumerate(zip(got, twins[kind_], exact[kind_])):
+            if r is None:
+                continue
+            e_k = stage_err(a, r, kind_ == "fwd")
+            e_t = stage_err(b, r, kind_ == "fwd")
+            check(e_k <= 4.0 * e_t + 1e-6, f"stage {name} {kind_} output "
+                  f"{k}: error {e_k} against float64, the twin's {e_t}")
+            errs.append([e_k, e_t])
+            abs_errs.append(float((a - b).abs().max()))
+        out[f"{kind_}_err_vs_float64"] = errs
+        out[f"{kind_}_max_abs_err"] = max(abs_errs)
+    del twins, exact, ins64
+
+    def composition():
+        leaves = [None if t is None or k == 5 else
+                  t.detach().requires_grad_(True)
+                  for k, t in enumerate(ins[:6])]
+        leaves[5] = ins[5]
+        rows, feats = stage.stage_fwd_plain(*leaves, *ins[6:], width,
+                                            height, ewa)
+        torch.autograd.backward([rows, feats], [buf[:, :8].T, buf[:, 8:13]])
+
+    floats_in = 3 + 3 + (4 if ewa else 0) + 3 * max(sh_k, 1) + 1 + 1
+    floats_grad = 3 + 3 + (4 if ewa else 0) + 3 * max(sh_k, 1) + 1
+    nbytes = {"fwd": 4 * n * (floats_in + 13),
+              "bwd": 4 * n * (floats_in + 13 + floats_grad)}
+    runs = {"fwd": (lambda: stage._fwd(ins, *args),
+                    lambda: stage.stage_fwd_plain(*ins, width, height, ewa)),
+            "bwd": (lambda: stage._bwd(ins, *args, cot, needs),
+                    lambda: stage.stage_bwd_plain(*ins, width, height, ewa,
+                                                  cot, needs))}
+    for kind_, (kernel, twin) in runs.items():
+        out[f"{kind_}_ms"] = time_ms(kernel, reps)
+        out[f"{kind_}_plain_ms"] = time_ms(twin, 5)
+        prof = profile_calls(lambda i: kernel(), reps, pad=PROFILE_PAD_S)
+        ms, launches = prof["port_kernels"].get(f"stage_{kind_}_kernel",
+                                                (None, 0))
+        out[f"{kind_}_device_ms"] = ms
+        out[f"{kind_}_device_launches_traced"] = launches * reps
+        out[f"{kind_}_bytes"] = nbytes[kind_]
+        out[f"{kind_}_bound_ms"] = 1e3 * nbytes[kind_] / HBM_BYTES_PER_S
+        out[f"{kind_}_bound_by"] = "bytes"
+    out["composition_autograd_ms"] = time_ms(composition, 5)
+    log("stage case " + json.dumps(out))
+    return out
+
+
 def profile_calls(fn, calls: int, pad: float = PROFILE_SHORT_PAD_S) -> dict:
     """Device time per call by CUDA kernel, from torch.profiler over
     `calls` back-to-back calls of fn(i); the device's busy share of the
@@ -1326,10 +1457,10 @@ def sep_kernel_case(name: str, staged, seed: int, reps: int = 20) -> dict:
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     from tpu_gaussians_torch.kernels import (
-        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2)
+        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2, stage)
 
     for counts in (splat_sep.launches, splat_v2.launches, binned.launches,
-                   splat_v1.launches):
+                   splat_v1.launches, stage.launches):
         for k in counts:
             counts[k] = 0
     sorted_fwd.launches = sorted_bwd.launches = 0
@@ -2365,7 +2496,8 @@ def colmap_fit_run(tmp: Path, run: str, name: str, argv, steps: int):
     text = printed.getvalue()
     log(text.rstrip())
     want = {k: 0 for k in launches}
-    want.update(splat_sep_fwd=6 * steps + 1, splat_sep_bwd=6 * steps)
+    want.update(splat_sep_fwd=6 * steps + 1, splat_sep_bwd=6 * steps,
+                stage_fwd=6 * steps + 1, stage_bwd=6 * steps)
     check(launches == want, f"colmap_fit {run}: kernel launches "
           f"{launches} for {steps} steps, expected exactly {want}")
     loop_s = float(text.split("Done in ")[1].split("s.")[0])
@@ -2696,6 +2828,8 @@ def parallel_fit_phase(tmp: Path, single: dict) -> dict:
         want = {k: 0 for k in summary["kernel_launches"]}
         want["splat_sep_fwd"] = 3 * 150 + (1 if r == 0 else 0)
         want["splat_sep_bwd"] = 3 * 150
+        want["stage_fwd"] = want["splat_sep_fwd"]
+        want["stage_bwd"] = want["splat_sep_bwd"]
         check(summary["kernel_launches"] == want, f"2-rank fit: rank {r} "
               f"launched {summary['kernel_launches']}, expected {want}")
         check(summary["allreduce_calls_per_step"] == 1,
@@ -2992,8 +3126,9 @@ def tiled_phase(npz: Path, tmp: Path) -> dict:
             out[mode] = row
     launches = read_launches()
     check(launches["sorted_fwd"] > 0 and launches["splat_sep_fwd"] > 0
+          and launches["stage_fwd"] > 0
           and all(v == 0 for k, v in launches.items()
-                  if k not in ("sorted_fwd", "splat_sep_fwd")),
+                  if k not in ("sorted_fwd", "splat_sep_fwd", "stage_fwd")),
           f"render_tiled launched {launches}")
     out["launches"] = {k: v for k, v in launches.items() if v}
     frames = {}
@@ -3241,6 +3376,13 @@ def main() -> int:
                     INTERACTIVE_KNOBS, reps=20),
     ]
     del g_big, cells
+
+    # 6b. the per-gaussian stage's kernels vs their twins at the
+    # benchmark's sizes
+    stage_cases = [stage_case("100k_ewa_sh3_1080p", 100_000, True, 16,
+                              args.seed),
+                   stage_case("1M_axis_sh1_1080p", 1_000_000, False, 4,
+                              args.seed + 1)]
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"],
@@ -3254,7 +3396,8 @@ def main() -> int:
     # the fitted model's inputs (padded to the fit's capacity, as in
     # training)
     fit = fit_phase(Path(tmp.name), "fit", [],
-                    {"splat_sep_fwd": 901, "splat_sep_bwd": 900})
+                    {"splat_sep_fwd": 901, "splat_sep_bwd": 900,
+                     "stage_fwd": 901, "stage_bwd": 900})
     fit_dir = Path(tmp.name) / "fit"
     g_fit = load_gaussians_npz(fit_dir / "gaussians_fitted.npz",
                                device="cuda")
@@ -3300,7 +3443,8 @@ def main() -> int:
     # and K5 on the fitted model (the preview's inputs)
     fit_s = fit_phase(Path(tmp.name), "fit_sorted", SORTED_FIT_ARGS,
                       {"sorted_fwd": 900, "sorted_bwd": 900,
-                       "splat_v2_fwd": 1},
+                       "splat_v2_fwd": 1, "stage_fwd": 900 + 1 + 6,
+                       "stage_bwd": 900},
                       expect_line="sorted pair budget k=")
     g_fs = load_gaussians_npz(Path(tmp.name) / "fit_sorted"
                               / "gaussians_fitted.npz", device="cuda")
@@ -3375,7 +3519,8 @@ def main() -> int:
     # (capacity 3000: auto -> accum, n < BINNED_MIN_N -> K5/K6), its step
     # profile, and K5/K6 on the fitted model
     fit_ea = fit_phase(Path(tmp.name), "fit_ewa_accum", EWA_ACCUM_FIT_ARGS,
-                       {"splat_v2_fwd": 901, "splat_v2_bwd": 900})
+                       {"splat_v2_fwd": 901, "splat_v2_bwd": 900,
+                        "stage_fwd": 901, "stage_bwd": 900})
     raw_ea = raw_from_gaussians(load_gaussians_npz(
         Path(tmp.name) / "fit_ewa_accum" / "gaussians_fitted.npz",
         device="cuda"), capacity=3000)
@@ -3389,7 +3534,8 @@ def main() -> int:
     # 14. fit ewa binned: capacity 16384 in accum mode -> the tile-binned
     # K8a/K8b for training and the preview; no pair dropped
     fit_eb = fit_phase(Path(tmp.name), "fit_ewa_binned", EWA_BINNED_FIT_ARGS,
-                       {"binned_fwd": 901, "binned_bwd": 900})
+                       {"binned_fwd": 901, "binned_bwd": 900,
+                        "stage_fwd": 901, "stage_bwd": 900})
     check(fit_eb["binner_dropped_pairs_max"] == 0,
           f"fit_ewa_binned dropped pairs "
           f"({fit_eb['binner_dropped_pairs_max']} in a step)")
@@ -3410,7 +3556,8 @@ def main() -> int:
     fit_ab = fit_phase(Path(tmp.name), "fit_axis_binned",
                        AXIS_BINNED_FIT_ARGS,
                        {"binned_sep_fwd": 900, "binned_sep_bwd": 900,
-                        "splat_sep_fwd": 1})
+                        "splat_sep_fwd": 1, "stage_fwd": 901,
+                        "stage_bwd": 900})
     check(fit_ab["binner_dropped_pairs_max"] == 0,
           f"fit_axis_binned dropped pairs "
           f"({fit_ab['binner_dropped_pairs_max']} in a step)")
@@ -3464,7 +3611,8 @@ def main() -> int:
         cams_s, targets_s, masks_s, steps=3, profile=1, render_config=exact)
     exact_launches = read_launches()
     calls = 1 + 3 + 1                      # warm-up, timed, profiled
-    want = {k: 4 * calls if k in ("splat_v1_fwd", "splat_v1_bwd") else 0
+    want = {k: 4 * calls if k in ("splat_v1_fwd", "splat_v1_bwd",
+                                  "stage_fwd", "stage_bwd") else 0
             for k in exact_launches}
     log(f"scale ewa exact main path: kernel launches {exact_launches}")
     check(exact_launches == want, f"scale ewa exact: kernel launches "
@@ -3504,7 +3652,8 @@ def main() -> int:
         cams_s, targets_s, masks_s, steps=1, profile=1, render_config=exact)
     mixed_launches = read_launches()
     calls_m = 1 + 1 + 1                    # warm-up, timed, profiled
-    want = {k: 4 * calls_m if k in ("splat_v2_fwd", "splat_v1_bwd") else 0
+    want = {k: 4 * calls_m if k in ("splat_v2_fwd", "splat_v1_bwd",
+                                    "stage_fwd", "stage_bwd") else 0
             for k in mixed_launches}
     log(f"scale ewa mixed main path: kernel launches {mixed_launches}")
     check(mixed_launches == want, f"scale ewa mixed: kernel launches "
@@ -3693,10 +3842,28 @@ def main() -> int:
                            launches_per_step=exact_launches[name] // calls,
                            launches_mixed_route=mixed_launches[name],
                            **extra))
+    for kind_ in ("fwd", "bwd"):
+        sc = [{"case": c["case"], "ms": c[f"{kind_}_ms"],
+               "plain_ms": c[f"{kind_}_plain_ms"],
+               "bound_ms": c[f"{kind_}_bound_ms"],
+               "bound_by": c[f"{kind_}_bound_by"],
+               "max_abs_err": c[f"{kind_}_max_abs_err"]} for c in stage_cases]
+        extra = {k: {c["case"]: c[f"{kind_}_{k}"] for c in stage_cases}
+                 for k in ("device_ms", "device_launches_traced", "bytes",
+                           "err_vs_float64")}
+        extra["composition_autograd_ms"] = {
+            c["case"]: c["composition_autograd_ms"] for c in stage_cases}
+        extra["launches_fit_sorted"] = fit_s["launches"][f"stage_{kind_}"]
+        extra["ptxas"] = ptxas_lines("stage")
+        kernels.append(dict(row(
+            "stage", "none (XLA fused tpu_gaussians/ops/common.py:"
+            "prepare_splats)", fit["launches"][f"stage_{kind_}"], sc, sc[0],
+            **extra), name=f"stage_{kind_}"))
     check([k["name"] for k in kernels] == [
         "sorted_fwd", "splat_sep_fwd", "splat_sep_bwd", "sorted_bwd",
         "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd",
-        "binned_sep_fwd", "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd"]
+        "binned_sep_fwd", "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd",
+        "stage_fwd", "stage_bwd"]
         and all(k["launches"] > 0 for k in kernels),
         "a kernel of the report was never launched on a main path")
     log(json.dumps({"kernels": kernels}))

@@ -42,7 +42,19 @@ Tolerances:
   split three ways), and bit-identical across two launches; the axis
   binned render (K7a/K7b) and
   the EWA render on the tile grid (K9a/K9b) and their gradients against
-  the plain renderer: rtol 5e-4 / atol 1e-5, as the other accum renders."""
+  the plain renderer: rtol 5e-4 / atol 1e-5, as the other accum renders.
+- stage (the per-gaussian stage's forward and backward kernels): each
+  value's error against a float64 evaluation of the plain twin's formulas,
+  relative to its field's largest value (forward) or its gaussian's largest
+  gradient of the leaf (backward), within 4 times the f32 twin's own worst
+  error plus 1e-6:
+  both round in f32 in other orders (fused multiply-adds; cuBLAS's sums in
+  the twin), and det = m00 m11 - m01^2 amplifies the rounding of thin
+  splats, so no fixed rtol fits both thin and round ones. Bit-identical
+  across two launches. A training step's leaf gradients through the
+  kernels against the same step through the stage's plain composition
+  under autograd: as the sorted render's gradients (the slot gather's
+  atomics add in another order each run)."""
 
 import numpy as np
 import pytest
@@ -51,7 +63,8 @@ import torch
 from tpu_gaussians_torch.core import camera as tcam
 from tpu_gaussians_torch.core.types import RenderConfig, gaussians_from_numpy
 from tpu_gaussians_torch.kernels import (
-    binned, build, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2)
+    binned, build, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2,
+    stage)
 from tpu_gaussians_torch.ops import splat as tsplat
 from tpu_gaussians_torch.ops.common import SplatInputs
 from tpu_gaussians_torch.ops.dispatch import render
@@ -1520,3 +1533,170 @@ def test_render_tiled_on_one_card_named_twice(cuda, mode):
             for a, b in zip(tiled, full):
                 assert a.shape == b.shape and a.device == b.device
                 torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+
+
+def stage_inputs(n, ewa, sh_k, device, seed=0):
+    """The benchmark's kind of scene (means U(-1,1), scales U(0.005,0.03),
+    opacities U(0.2,0.9), N(0,1) quaternions, SH DC U(0,1) and higher rows
+    N(0,0.1)) with a tenth of it dead, and view 1 of 4 orbit cameras at
+    1920x1080: the stage's arguments (means ... proj)."""
+    rng = np.random.default_rng(seed)
+    sh = rng.normal(0.0, 0.1, (n, sh_k, 3))
+    sh[:, 0] = rng.uniform(0.0, 1.0, (n, 3))
+    arrs = (rng.uniform(-1.0, 1.0, (n, 3)), rng.uniform(0.005, 0.03, (n, 3)),
+            rng.normal(size=(n, 4)) if ewa else None, sh,
+            rng.uniform(0.2, 0.9, n), (rng.uniform(size=n) > 0.1))
+    t = [None if a is None else torch.from_numpy(
+        np.asarray(a, np.float32)).to(device) for a in arrs]
+    c = tcam.orbit_cameras(4, 1920, 1080, device=device)[1]
+    return t + [c.view, c.proj]
+
+
+def stage_err(x, ref, rows):
+    """Worst error of x against ref (float64), relative to the largest
+    |ref| of its field (rows: each of the 8 rows and each feats column) or
+    of its gaussian (gradients: the gaussian's largest of that leaf)."""
+    ref = ref.double()
+    if rows:
+        scale = ref.abs().amax(dim=1 if ref.shape[0] == 8 else 0,
+                               keepdim=True)
+    else:
+        n = ref.shape[0]
+        scale = ref.abs().reshape(n, -1).amax(dim=1).reshape(
+            (n,) + (1,) * (ref.ndim - 1))
+    return float(((x.double() - ref).abs() / scale.clamp(min=1e-30)).max())
+
+
+def assert_stage_close(got, twin, exact, what):
+    for k, (a, b, r) in enumerate(zip(got, twin, exact)):
+        if r is None:
+            assert a is None and b is None
+            continue
+        rows = what == "forward"
+        e_k, e_t = stage_err(a, r, rows), stage_err(b, r, rows)
+        assert e_k <= 4.0 * e_t + 1e-6, (what, k, e_k, e_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ewa,sh_k", [(100_000, True, 16),
+                                        (1_000_000, False, 4)])
+def test_stage_kernels_match_plain_twins(cuda, n, ewa, sh_k):
+    """The stage's forward and backward kernels against their twins at the
+    benchmark's sizes (100k EWA SH3, 1M axis SH1), and bit for bit across
+    two launches. The backward takes strided cotangents (columns of one
+    (N, 16) buffer, as the sorted route's gather hands them back) and one
+    None."""
+    ins = stage_inputs(n, ewa, sh_k, cuda)
+    ins64 = [None if t is None else t.double() for t in ins]
+    args = (1920, 1080, ewa, sh_k)
+    before = dict(stage.launches)
+    rows, feats = stage._fwd(ins, *args)
+    rows2, feats2 = stage._fwd(ins, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, rows2) and torch.equal(feats, feats2)
+    twin = stage.stage_fwd_plain(*ins, 1920, 1080, ewa)
+    exact = stage.stage_fwd_plain(*ins64, 1920, 1080, ewa)
+    assert_stage_close([rows, feats], twin, exact, "forward")
+
+    buf = torch.randn((n, 16), generator=torch.Generator().manual_seed(1)
+                      ).to(cuda)
+    cot = [buf[:, k] for k in range(8)] + [buf[:, 8:13]]
+    cot[6] = None
+    needs = [t is not None for t in ins[:5]]
+    got = stage._bwd(ins, *args, cot, needs)
+    got2 = stage._bwd(ins, *args, cot, needs)
+    torch.cuda.synchronize()
+    assert stage.launches == {"stage_fwd": before["stage_fwd"] + 2,
+                              "stage_bwd": before["stage_bwd"] + 2}
+    for a, b in zip(got, got2):
+        assert (a is None and b is None) or torch.equal(a, b)
+    twin = stage.stage_bwd_plain(*ins, 1920, 1080, ewa, cot, needs)
+    exact = stage.stage_bwd_plain(
+        *ins64, 1920, 1080, ewa,
+        [None if g is None else g.double() for g in cot], needs)
+    assert_stage_close(got, twin, exact, "backward")
+
+
+def stage_step(device, n=3000, side=256):
+    """A sorted EWA SH3 training step of 4 views: (its loss function's
+    arguments, the raw leaves)."""
+    from tpu_gaussians_torch.fit.loss import LossConfig
+    from tpu_gaussians_torch.models.gaussian_model import init_params
+
+    gen = torch.Generator().manual_seed(0)
+    raw = init_params(gen, n, n, True, use_quats=True, sh_degree=3,
+                      device=device)
+    # Rotated, anisotropic splats (the init's are identity and round,
+    # where the quaternions' gradient vanishes).
+    leaves = dict(raw.trainable())
+    leaves["quats_raw"] = torch.randn((n, 4), generator=gen).to(device)
+    leaves["scales_raw"] = leaves["scales_raw"] + torch.randn(
+        (n, 3), generator=gen).to(device)
+    leaves = {k: t.detach().clone().requires_grad_(True)
+              for k, t in leaves.items()}
+    raw = raw.with_trainable(leaves)
+    cams = tcam.orbit_cameras(4, side, side, device=device)
+    rng = np.random.default_rng(0)
+    targets = torch.from_numpy(rng.uniform(0, 1, (4, side, side, 3)).astype(
+        np.float32)).to(device)
+    cfg = RenderConfig(width=side, height=side, mode="sorted",
+                       footprint="ewa", sorted_pair_k=16)
+    return (raw, cams, targets, None, None, cfg, LossConfig()), leaves
+
+
+@pytest.mark.cuda
+def test_stage_launches_once_a_view_each_way(cuda, tmp_path):
+    """A sorted 4-view training step launches the stage's forward 4 times
+    and its backward 4 times; a served frame launches its forward once."""
+    from tpu_gaussians_torch.cli.serve import RenderService
+    from tpu_gaussians_torch.fit.loss import loss_fn
+    from tpu_gaussians_torch.io.npz import save_gaussians_npz
+
+    args, _ = stage_step(cuda)
+    before = dict(stage.launches)
+    loss_fn(*args)[0].backward()
+    torch.cuda.synchronize()
+    assert stage.launches == {"stage_fwd": before["stage_fwd"] + 4,
+                              "stage_bwd": before["stage_bwd"] + 4}
+    rng = np.random.default_rng(1)
+    save_gaussians_npz(tmp_path / "g.npz", gaussians_from_numpy(dict(
+        means=rng.uniform(-1, 1, (5000, 3)).astype(np.float32),
+        scales=rng.uniform(0.005, 0.03, (5000, 3)).astype(np.float32),
+        colors=rng.uniform(0, 1, (5000, 3)).astype(np.float32),
+        opacities=rng.uniform(0.2, 0.9, 5000).astype(np.float32)),
+        device="cpu"))
+    svc = RenderService(str(tmp_path / "g.npz"), device="cuda")
+    svc.render_frame(0.5, 0.2, 2.5, 320, 240, "sorted")
+    before = dict(stage.launches)
+    svc.render_frame(0.6, 0.2, 2.5, 320, 240, "sorted")
+    assert stage.launches == {"stage_fwd": before["stage_fwd"] + 1,
+                              "stage_bwd": before["stage_bwd"]}
+
+
+@pytest.mark.cuda
+def test_stage_step_grads_match_the_plain_composition(cuda, monkeypatch):
+    """A sorted EWA SH3 step's loss and leaf gradients through the stage's
+    kernels against the same step with the stage's plain composition under
+    autograd in its place (the stage as it was before the kernels)."""
+    from tpu_gaussians_torch.fit.loss import loss_fn
+    from tpu_gaussians_torch.ops import common
+
+    def plain(means, scales, quats, colors, opacities, alive, view, proj,
+              width, height, ewa):
+        rows, feats = stage.stage_fwd_plain(means, scales, quats, colors,
+                                            opacities, alive, view, proj,
+                                            width, height, ewa)
+        return (*rows.unbind(0), feats)
+
+    out = {}
+    for name in ("kernels", "plain"):
+        if name == "plain":
+            monkeypatch.setattr(common, "stage", plain)
+        args, leaves = stage_step(cuda)
+        loss = loss_fn(*args)[0]
+        loss.backward()
+        out[name] = [loss.detach()] + [leaves[k].grad for k in sorted(leaves)]
+    for a, b in zip(out["kernels"], out["plain"]):
+        scale = float(b.abs().max())
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=2e-3, atol=2e-4 * scale)

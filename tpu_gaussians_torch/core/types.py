@@ -48,11 +48,12 @@ def resolve_device(device: Device = "cuda") -> torch.device:
 
 
 def to_device(array, device: Device) -> torch.Tensor:
-    """A float32 copy of a host array-like on `device`. A CUDA upload goes
-    through pinned memory and is queued without waiting for the device, so
-    per-frame uploads do not stall the work queued before them."""
+    """A C-contiguous float32 copy of a host array-like on `device`. A CUDA
+    upload goes through pinned memory and is queued without waiting for
+    the device, so per-frame uploads do not stall the work queued before
+    them."""
     dev = resolve_device(device)
-    host = torch.from_numpy(np.array(array, dtype=np.float32))
+    host = torch.from_numpy(np.array(array, dtype=np.float32, order="C"))
     if dev.type == "cuda":
         host = host.pin_memory()
     return host.to(dev, non_blocking=True)

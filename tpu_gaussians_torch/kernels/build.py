@@ -24,7 +24,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -33,7 +33,8 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNELS = ("sorted_fwd", "sorted_bwd", "splat_sep_fwd", "splat_sep_bwd",
            "splat_v2_fwd", "splat_v2_bwd", "binned_fwd", "binned_bwd",
-           "binned_sep_fwd", "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd")
+           "binned_sep_fwd", "binned_sep_bwd", "splat_v1_fwd", "splat_v1_bwd",
+           "stage")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -96,11 +97,11 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
-    """True if kernel `name` is to be launched on `tensors` (CUDA, 16-byte
-    aligned: the kernels load float4), False for CPU tensors and inside
-    utils.debug.interpret_mode (the plain twin's cases); raises on any
-    other device or a misaligned tensor."""
+def on_cuda(name: str, *tensors: torch.Tensor, float4: bool = True) -> bool:
+    """True if kernel `name` is to be launched on `tensors` (CUDA, and
+    16-byte aligned where the kernel loads float4), False for CPU tensors
+    and inside utils.debug.interpret_mode (the plain twin's cases); raises
+    on any other device or a misaligned tensor."""
     dev = tensors[0].device
     if dev.type == "cpu":
         return False
@@ -108,27 +109,31 @@ def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
         raise ValueError(f"{name} runs on cuda or cpu, got {dev}")
     if interpret_depth > 0:
         return False
-    if any(t.data_ptr() % 16 for t in tensors):
+    if float4 and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: tensors must be 16-byte aligned (the "
                          "kernel loads float4)")
     return True
 
 
-def launch(name: str, tensors: Sequence[torch.Tensor], *scalars) -> None:
-    """Call `<name>_launch(pointers..., scalars..., stream)` of kernel
-    `name`'s library on the current stream of tensors[0]'s device: each
-    tensor passes as its device pointer, a Python float as a C float and
-    any other scalar as a C int. Raises on a non-zero CUDA error."""
-    fn = getattr(load(name), f"{name}_launch")
+def launch(name: str, tensors: Sequence[Optional[torch.Tensor]], *scalars,
+           entry: str = "") -> None:
+    """Call `<entry>_launch(pointers..., scalars..., stream)` of kernel
+    `name`'s library (entry defaults to name) on the current stream of
+    tensors[0]'s device: each tensor passes as its device pointer (None as
+    a null pointer), a Python float as a C float and any other scalar as a
+    C int. Raises on a non-zero CUDA error."""
+    fn = getattr(load(name), f"{entry or name}_launch")
     fn.restype = ctypes.c_int
-    args = [ctypes.c_void_p(t.data_ptr()) for t in tensors] + [
+    args = [ctypes.c_void_p(None if t is None else t.data_ptr())
+            for t in tensors] + [
         ctypes.c_float(s) if isinstance(s, float) else ctypes.c_int(s)
         for s in scalars]
     with torch.cuda.device(tensors[0].device):
         err = fn(*args,
                  ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
-        raise RuntimeError(f"{name}_launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry or name}_launch failed with CUDA error "
+                           f"{err}")
 
 
 def build_others(name: str, paths: Sequence[Path]) -> dict:

@@ -20,9 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from tpu_gaussians_torch.core.types import Gaussians
-from tpu_gaussians_torch.ops.ewa import axis_aligned_conic, ewa_conic
-from tpu_gaussians_torch.ops.projection import project
-from tpu_gaussians_torch.ops.sh import eval_colors
+from tpu_gaussians_torch.kernels.stage import stage
 from tpu_gaussians_torch.utils.profiling import annotate
 
 FEAT_DIM = 5  # [r, g, b, 1, z]
@@ -48,33 +46,15 @@ def prepare_splats(g: Gaussians, view: torch.Tensor, proj: torch.Tensor,
                    footprint: str = "axis") -> SplatInputs:
     """O(N) per-Gaussian stage: projection, footprint conic, color eval,
     masking (torch_renderer.py:143-150, color clamp :144, validity :185),
-    with the alive-capacity mask folded into the opacity. Its forward is
-    the span `gs.stage`."""
+    with the alive-capacity mask folded into the opacity: one kernel each
+    way on the card (kernels/stage.py). Its forward is the span
+    `gs.stage`, its backward `gs.stage.bwd`."""
     with annotate("gs.stage"):
-        s = project(g.means, view, proj, width, height, g.scales)
-        colors = eval_colors(g.sh if g.use_sh else g.colors, g.means, view)
-        colors = torch.clamp(colors, 0.0, 1.0)
-
-        if footprint == "ewa":
-            quats = g.quats
-            if quats is None:
-                quats = torch.zeros((g.capacity, 4), dtype=torch.float32,
-                                    device=g.device)
-                quats[:, 0] = 1.0
-            conic = ewa_conic(g.means, g.scales, quats, view, proj, width,
-                              height)
-        else:
-            conic = axis_aligned_conic(s.sigma_x, s.sigma_y)
-
-        op_eff = torch.clamp(g.opacities, min=0.0) * s.valid * g.alive_mask()
-        feats = torch.cat([colors, torch.ones_like(s.z_abs)[:, None],
-                           s.z_abs[:, None]], dim=1)
-        return SplatInputs(
-            px=s.px, py=s.py,
-            conic_a=conic.a, conic_b=conic.b, conic_c=conic.c,
-            sigma_x=conic.sigma_x, sigma_y=conic.sigma_y,
-            op_eff=op_eff, feats=feats,
-        )
+        alive = None if g.alive is None else g.alive_mask()
+        return SplatInputs(*stage(
+            g.means, g.scales, g.quats, g.sh if g.use_sh else g.colors,
+            g.opacities, alive, view, proj, width, height,
+            ewa=footprint == "ewa"))
 
 
 def resolve_accum(acc: torch.Tensor, background: torch.Tensor, height: int,

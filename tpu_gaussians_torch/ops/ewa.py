@@ -58,7 +58,24 @@ def axis_aligned_conic(sigma_x: torch.Tensor,
                  sigma_y=sigma_y)
 
 
-def ewa_conic(
+class Cov2D(NamedTuple):
+    """The EWA screen covariance of each gaussian and the terms it was
+    built from, as `ewa_conic` and the stage's backward twin need them."""
+
+    rot: torch.Tensor      # (N,3,3) rotation of the normalised quaternion
+    t: torch.Tensor        # (N,3) camera-space centre
+    inv_mz: torch.Tensor   # (N,) 1 / (-t_z), |t_z| < 1e-6 taken as +-1e-6
+    j00: torch.Tensor      # (N,) the Jacobian's non-zero entries
+    j02: torch.Tensor
+    j11: torch.Tensor
+    j12: torch.Tensor
+    cov_cam: torch.Tensor  # (N,3,3) V Sigma3 V^T
+    m00: torch.Tensor      # (N,) J cov_cam J^T + blur I, before the clamps
+    m01: torch.Tensor
+    m11: torch.Tensor
+
+
+def ewa_cov2d(
     means: torch.Tensor,
     scales: torch.Tensor,
     quats: torch.Tensor,
@@ -67,14 +84,10 @@ def ewa_conic(
     width: int,
     height: int,
     blur: float = 0.3,
-    min_sigma: float = 0.3,
-) -> Conic:
-    """Full EWA projected conic for each gaussian.
-
-    means (N,3), scales (N,3), quats (N,4) wxyz, view/proj (4,4).
-    `blur` is the screen-space low-pass dilation (pixels^2); `min_sigma`
-    floors the culling sigmas.
-    """
+) -> Cov2D:
+    """Sigma2 = J V Sigma3 V^T J^T + blur*I of each gaussian, unclamped,
+    with its terms. means (N,3), scales (N,3), quats (N,4) wxyz,
+    view/proj (4,4)."""
     rot = quat_to_rot(quats)                             # (N,3,3)
     rs = rot * (scales * scales)[:, None, :]             # R @ diag(s^2)
     sigma3 = torch.einsum("nij,nkj->nik", rs, rot)       # (N,3,3)
@@ -103,14 +116,37 @@ def ewa_conic(
     m00 = torch.einsum("ni,nij,nj->n", r0, cov_cam, r0) + blur
     m01 = torch.einsum("ni,nij,nj->n", r0, cov_cam, r1)
     m11 = torch.einsum("ni,nij,nj->n", r1, cov_cam, r1) + blur
+    return Cov2D(rot=rot, t=t, inv_mz=inv_mz, j00=j00, j02=j02,
+                 j11=j11, j12=j12, cov_cam=cov_cam, m00=m00, m01=m01,
+                 m11=m11)
+
+
+def ewa_conic(
+    means: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    view: torch.Tensor,
+    proj: torch.Tensor,
+    width: int,
+    height: int,
+    blur: float = 0.3,
+    min_sigma: float = 0.3,
+) -> Conic:
+    """Full EWA projected conic for each gaussian.
+
+    means (N,3), scales (N,3), quats (N,4) wxyz, view/proj (4,4).
+    `blur` is the screen-space low-pass dilation (pixels^2); `min_sigma`
+    floors the culling sigmas.
+    """
+    e = ewa_cov2d(means, scales, quats, view, proj, width, height, blur)
 
     # f32 overflow guard: splats crossing the camera plane blow J up and
     # det would become inf - inf; clamp to a huge-but-finite PSD ceiling.
     cap = 1e10
-    m00 = torch.clamp(m00, 1e-8, cap)
-    m11 = torch.clamp(m11, 1e-8, cap)
+    m00 = torch.clamp(e.m00, 1e-8, cap)
+    m11 = torch.clamp(e.m11, 1e-8, cap)
     m01_bound = 0.999 * torch.sqrt(m00 * m11)
-    m01 = torch.clamp(m01, -m01_bound, m01_bound)
+    m01 = torch.clamp(e.m01, -m01_bound, m01_bound)
 
     det = torch.clamp(m00 * m11 - m01 * m01, min=1e-12)
     a = m11 / det

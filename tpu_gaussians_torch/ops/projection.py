@@ -21,7 +21,7 @@ precision="highest"): on CUDA, `core.types.resolve_device` sets
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -37,17 +37,32 @@ class ScreenSplats(NamedTuple):
     sigma_y: torch.Tensor  # (N,) screen-space stddev in y, clamped >= 1
 
 
-def project(means: torch.Tensor, view: torch.Tensor, proj: torch.Tensor,
-            width: int, height: int, scales: torch.Tensor) -> ScreenSplats:
-    """means (N,3), scales (N,3), view/proj (4,4) -> ScreenSplats of (N,)."""
+def clip_space(means: torch.Tensor, view: torch.Tensor, proj: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """means (N,3) -> (p_cam (N,4), p_clip (N,4), w_safe (N,1)): camera and
+    clip coordinates, and the clip w with |w| < 1e-8 replaced by 1."""
     ones = torch.ones((means.shape[0], 1), dtype=means.dtype,
                       device=means.device)
     p_obj = torch.cat([means, ones], dim=1)        # (N,4)
     p_cam = p_obj @ view.T                         # (N,4)
     p_clip = p_cam @ proj.T                        # (N,4)
-
     w = p_clip[:, 3:4]
     w_safe = torch.where(w.abs() < 1e-8, torch.ones_like(w), w)
+    return p_cam, p_clip, w_safe
+
+
+def axis_sigma(scale: torch.Tensor, size: int, focal: torch.Tensor,
+               z_abs: torch.Tensor) -> torch.Tensor:
+    """|scale| * 0.5 * size * |focal| / z_abs: a screen sigma in pixels
+    before its floor of 1."""
+    return scale.abs() * 0.5 * size * focal.abs() / z_abs
+
+
+def project(means: torch.Tensor, view: torch.Tensor, proj: torch.Tensor,
+            width: int, height: int, scales: torch.Tensor) -> ScreenSplats:
+    """means (N,3), scales (N,3), view/proj (4,4) -> ScreenSplats of (N,)."""
+    p_cam, p_clip, w_safe = clip_space(means, view, proj)
+    w = p_clip[:, 3:4]
     ndc = p_clip[:, :3] / w_safe
 
     px = (ndc[:, 0] * 0.5 + 0.5) * (width - 1)
@@ -57,12 +72,10 @@ def project(means: torch.Tensor, view: torch.Tensor, proj: torch.Tensor,
              & (w[:, 0] != 0.0)).to(torch.float32)
     z_abs = torch.clamp(p_cam[:, 2].abs(), min=1e-6)
 
-    fx = proj[0, 0].abs()
-    fy = proj[1, 1].abs()
-    sigma_x = torch.clamp(scales[:, 0].abs() * 0.5 * width * fx / z_abs,
+    sigma_x = torch.clamp(axis_sigma(scales[:, 0], width, proj[0, 0], z_abs),
                           min=1.0)
-    sigma_y = torch.clamp(scales[:, 1].abs() * 0.5 * height * fy / z_abs,
-                          min=1.0)
+    sigma_y = torch.clamp(axis_sigma(scales[:, 1], height, proj[1, 1],
+                                     z_abs), min=1.0)
     return ScreenSplats(px=px, py=py, z_abs=z_abs, valid=valid,
                         sigma_x=sigma_x, sigma_y=sigma_y)
 

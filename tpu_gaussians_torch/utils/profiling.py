@@ -201,8 +201,9 @@ class StepTimer:
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count in this process, by kernel."""
     from tpu_gaussians_torch.kernels import (
-        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2)
+        binned, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2, stage)
 
     return {"sorted_fwd": sorted_fwd.launches,
             "sorted_bwd": sorted_bwd.launches, **splat_sep.launches,
-            **splat_v2.launches, **binned.launches, **splat_v1.launches}
+            **splat_v2.launches, **binned.launches, **splat_v1.launches,
+            **stage.launches}
