@@ -25,8 +25,16 @@ Phases, each of which fails the run by raising:
   5. loop     cli.serve.run_loop, 50 frames (its JSON line), then the
               serving cells (100k under both presets, 1M interactive) with
               a torch.profiler breakdown each
+ 5b. serve ewa  a 1M-gaussian model as 3DGS trainers export it (N(0,1)
+              quaternions, SH degree 3) served at 1920x1080 under the
+              quality preset with the default footprint: it resolves to
+              ewa, the served frame launches the stage's forward kernel
+              and K3 once each and nothing else, and it is bit for bit the
+              port's render(..., footprint="ewa") of the pose
   6. kernel   the compositing kernel (K3) vs its plain twin on the serving
-              path's inputs: image and alpha within rtol 1e-4 / atol 1e-5,
+              path's inputs (axis at 960x540; K3's EWA build on phase 5b's
+              model at 1920x1080, quality preset): image and alpha within
+              rtol 1e-4 / atol 1e-5,
               and within exit_t on tiles whose whole-tile early-exit
               decision differs; K3 twice, bit-identical, and the blocks
               its launch takes (a cluster of 8 a tile: the grid of its
@@ -38,8 +46,8 @@ Phases, each of which fails the run by raising:
               plain renderer in both modes and both footprints (EWA accum
               through K5)
  6b. stage    the per-gaussian stage's forward and backward kernels against
-              their plain twins at 100k EWA SH3 and 1M axis SH1 gaussians,
-              1920x1080 (stage_case): each value's error against float64
+              their plain twins at 100k EWA SH3, 1M axis SH1 and 1M EWA
+              SH3 gaussians, 1920x1080 (stage_case): each value's error against float64
               within 4x the f32 twin's, bit-identical across two launches;
               event and device ms beside the plain twins', the plain
               composition's under autograd and the byte bound. Every fit
@@ -593,6 +601,71 @@ def scene_arrays(n: int, seed: int):
         opacities=rng.uniform(0.2, 0.9, (n,)).astype(np.float32))
 
 
+def serve_ewa_phase(tmpdir: Path, seed: int, n: int = 1_000_000):
+    """cli.serve's RenderService on a 3DGS-style model: n gaussians of
+    phase 3's generator with N(0,1) quaternions and SH degree 3 (DC from
+    the colour in the 3DGS basis, higher rows N(0,0.1)), written as the npz
+    a trainer exports, served under the quality preset at 1920x1080 with
+    the default footprint. The footprint must resolve to ewa, a served
+    frame must launch the stage's forward kernel once, K3 once and no
+    other kernel, and be bit for bit the port's render(...,
+    footprint="ewa") of the same pose quantised as the service does; the
+    axis draw of the model is logged beside it. Returns the served
+    gaussians (phase 6 holds K3's EWA build against its twin on them)."""
+    import numpy as np
+    import torch
+
+    from tpu_gaussians_torch.cli.serve import RenderService
+    from tpu_gaussians_torch.core.types import RenderConfig, make_gaussians
+    from tpu_gaussians_torch.io.npz import save_gaussians_npz
+    from tpu_gaussians_torch.ops.dispatch import render
+
+    rng = np.random.default_rng(seed)
+    arr = scene_arrays(n, seed)
+    sh = rng.normal(0.0, 0.1, (n, 16, 3)).astype(np.float32)
+    sh[:, 0] = (arr["colors"] - 0.5) / 0.28209479177387814
+    path = tmpdir / "scene_1m_ewa_sh3.npz"
+    save_gaussians_npz(path, make_gaussians(
+        arr["means"], arr["scales"], arr["opacities"], sh=sh,
+        quats=rng.normal(size=(n, 4)).astype(np.float32), device="cpu"))
+    svc = RenderService(str(path), preset="quality", device="cuda")
+    check(svc.footprint == "ewa",
+          f"serve ewa: footprint auto resolved to {svc.footprint!r}")
+    width, height, pose = 1920, 1080, (0.7, 0.2, 2.5)
+    svc.render_frame(*pose, width, height, "sorted")   # build and warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    served = svc.render_frame(*pose, width, height, "sorted")
+    frame_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {k: v for k, v in read_launches().items() if v}
+
+    def drawn(footprint):
+        cfg = RenderConfig(width=width, height=height, mode="sorted",
+                           footprint=footprint,
+                           background=(0.02, 0.02, 0.02))
+        with torch.no_grad():
+            img = render(svc.gaussians,
+                         svc.camera(*pose, width, height), cfg)
+        return (torch.clamp(img, 0.0, 1.0) * 255.0).to(
+            torch.uint8).cpu().numpy()
+
+    ewa, axis = drawn("ewa"), drawn("axis")
+    axis_off = float((np.abs(served.astype(np.int16)
+                             - axis.astype(np.int16)) > 1).mean())
+    out = {"n": n, "footprint": svc.footprint, "frame_ms": frame_ms,
+           "launches": launches,
+           "equal_to_ewa_render": bool(np.array_equal(served, ewa)),
+           "axis_share_off_by_2_or_more": axis_off}
+    log("serve ewa: " + json.dumps(out))
+    check(launches == {"stage_fwd": 1, "sorted_fwd": 1},
+          f"serve ewa: a served frame launched {launches}, not the stage's "
+          "forward and K3 once each")
+    check(out["equal_to_ewa_render"],
+          "serve ewa: the served frame differs from render(footprint='ewa')")
+    return svc.gaussians
+
+
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median CUDA-event time of `fn` over `reps` launches after warm-up."""
     import torch
@@ -836,11 +909,11 @@ def sorted_fwd_clock(k3) -> float:
     return mhz
 
 
-def kernel_case(name, g, width, height, knobs, reps):
-    """K3 against its plain twin and itself on one served frame's
-    compositing inputs (sorted_fwd_check), timed (CUDA events, and its
-    kernel alone by torch.profiler) beside its bounds (sorted_fwd_bound,
-    sorted_fwd_live_bound)."""
+def kernel_case(name, g, width, height, knobs, reps, footprint="axis"):
+    """K3's build for `footprint` against its plain twin and itself on one
+    served frame's compositing inputs (sorted_fwd_check), timed (CUDA
+    events, and its kernel alone by torch.profiler) beside its bounds
+    (sorted_fwd_bound, sorted_fwd_live_bound)."""
     import torch
 
     from tpu_gaussians_torch.core import camera as cam
@@ -851,40 +924,43 @@ def kernel_case(name, g, width, height, knobs, reps):
     from tpu_gaussians_torch.ops.common import prepare_splats
     from tpu_gaussians_torch.ops.projection import camera_z
 
-    cfg = RenderConfig(width=width, height=height, mode="sorted", **knobs)
+    cfg = RenderConfig(width=width, height=height, mode="sorted",
+                       footprint=footprint, **knobs)
     exit_t = cfg.sorted_exit_t or EXIT_T
+    axis = footprint == "axis"
     c = cam.orbit_cameras(8, width, height, device="cuda")[1]
     with torch.no_grad():
-        s = prepare_splats(g, c.view, c.proj, width, height)
+        s = prepare_splats(g, c.view, c.proj, width, height, footprint)
         gdense, cnt, tiles_x, tiles_y, stats = tiled.tile_lists(
             s, camera_z(g.means, c.view), height, width,
             cfg.sorted_band_capacity, cfg.sorted_pair_k)
         _, chunks_k, max_err, tiles_differ, blocks = sorted_fwd_check(
-            name, gdense, cnt, tiles_x, tiles_y, height, width, True, exit_t)
+            name, gdense, cnt, tiles_x, tiles_y, height, width, axis, exit_t)
 
         def k3():
-            return sorted_fwd.sorted_tiles(gdense, cnt, tiles_x, axis=True,
+            return sorted_fwd.sorted_tiles(gdense, cnt, tiles_x, axis=axis,
                                            exit_t=exit_t)
         k_ms = time_ms(k3, reps)
         device_ms, traced = sorted_fwd_device(k3, reps)
         p_ms = time_ms(lambda: sorted_fwd.sorted_tiles_plain(
-            gdense, cnt, tiles_x, axis=True, exit_t=exit_t), reps)
+            gdense, cnt, tiles_x, axis=axis, exit_t=exit_t), reps)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        live = sorted_fwd_live_bound(gdense, cnt, chunks_k, tiles_x, "axis",
-                                     sms, sorted_fwd_clock(k3))
+        live = sorted_fwd_live_bound(gdense, cnt, chunks_k, tiles_x,
+                                     footprint, sms, sorted_fwd_clock(k3))
 
-    # The least the card could take for this run's work (the axis
-    # footprint's compositing, as the server renders): every composited
-    # (slot, pixel) pair (bound_ms), and the live ones (live_bound_ms).
+    # The least the card could take for this run's work (the footprint's
+    # compositing, as the server renders): every composited (slot, pixel)
+    # pair (bound_ms), and the live ones (live_bound_ms).
     n_tiles = cnt.shape[0]
     case = {
-        "case": name, "n": g.capacity, "width": width, "height": height,
+        "case": name, "n": g.capacity, "footprint": footprint,
+        "width": width, "height": height,
         "tiles": n_tiles, "blocks": blocks, "cap": gdense.shape[0] // n_tiles,
         "exit_t": exit_t, "slots_listed": int(cnt.sum()),
         "tiles_exit_differs": tiles_differ, "max_abs_err": max_err,
         "ms": k_ms, "device_ms": device_ms,
         "device_launches_traced": traced, "plain_ms": p_ms,
-        **sorted_fwd_bound(cnt, chunks_k, "axis"), **live,
+        **sorted_fwd_bound(cnt, chunks_k, footprint), **live,
         "stats": {k: int(v) for k, v in stats.items()},
     }
     log("kernel case " + json.dumps(case))
@@ -3365,6 +3441,10 @@ def main() -> int:
         log(f"profile {name} " + json.dumps(profile_frames(cell, width,
                                                            height)))
 
+    # 5b. a 3DGS model at the benchmark's serving size: the footprint
+    # follows the model
+    g_ewa = serve_ewa_phase(Path(tmp.name), args.seed + 2)
+
     # 6. kernel vs plain twin at full size
     g_big = cells["1M_interactive"].gaussians
     cases = [
@@ -3374,15 +3454,20 @@ def main() -> int:
                     {}, reps=20),
         kernel_case("1M_960x540_interactive", g_big, width, height,
                     INTERACTIVE_KNOBS, reps=20),
+        kernel_case("1M_ewa_sh3_1920x1080_quality", g_ewa, 1920, 1080, {},
+                    reps=20, footprint="ewa"),
     ]
-    del g_big, cells
+    del g_big, g_ewa, cells
+    torch.cuda.empty_cache()
 
     # 6b. the per-gaussian stage's kernels vs their twins at the
     # benchmark's sizes
     stage_cases = [stage_case("100k_ewa_sh3_1080p", 100_000, True, 16,
                               args.seed),
                    stage_case("1M_axis_sh1_1080p", 1_000_000, False, 4,
-                              args.seed + 1)]
+                              args.seed + 1),
+                   stage_case("1M_ewa_sh3_1080p", 1_000_000, True, 16,
+                              args.seed + 2)]
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
          "temperature.gpu", "--format=csv,noheader"],

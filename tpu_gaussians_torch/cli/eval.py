@@ -20,7 +20,8 @@ import torch
 
 from tpu_gaussians_torch.core import camera as cam
 from tpu_gaussians_torch.core.types import (
-    Camera, Gaussians, RenderConfig, resolve_device, to_device)
+    Camera, Gaussians, RenderConfig, resolve_device, resolve_footprint,
+    to_device)
 from tpu_gaussians_torch.fit.loss import ssim as ssim_fn
 from tpu_gaussians_torch.io import image as im
 from tpu_gaussians_torch.io.npz import load_gaussians_npz
@@ -86,9 +87,7 @@ def main(argv=None) -> None:
         cameras = cam.orbit_cameras(v, args.width, args.height,
                                     fovy_deg=args.fovy, device=device)
 
-    fp = args.footprint
-    if fp == "auto":
-        fp = "ewa" if g.quats is not None else "axis"
+    fp = resolve_footprint(args.footprint, g)
     config = RenderConfig(width=args.width, height=args.height,
                           mode=args.mode, impl=args.impl, footprint=fp)
     l1, psnr, ssim = (t.cpu().numpy() for t in view_metrics(

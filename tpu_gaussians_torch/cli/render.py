@@ -4,6 +4,7 @@ counterpart of `tpu_gaussians.cli.render` (both compositing modes).
 Usage:
   python -m tpu_gaussians_torch.cli.render fitted.npz --out_dir renders \
       --width 960 --height 540 --mode sorted --num_views 8 [--device cuda]
+      [--footprint auto]  # ewa when the model carries quaternions
       [--shard_bands N]   # each frame as N row bands, round-robin on the cards
 """
 
@@ -15,7 +16,8 @@ from pathlib import Path
 import torch
 
 from tpu_gaussians_torch.core import camera as cam
-from tpu_gaussians_torch.core.types import RenderConfig, resolve_device
+from tpu_gaussians_torch.core.types import (
+    RenderConfig, resolve_device, resolve_footprint)
 from tpu_gaussians_torch.io.image import save_image_png
 from tpu_gaussians_torch.io.npz import load_gaussians_npz
 from tpu_gaussians_torch.ops.dispatch import render
@@ -39,6 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--impl", choices=["auto", "torch", "tiled"],
                     default="auto")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--footprint", choices=["auto", "axis", "ewa"],
+                    default="auto",
+                    help="auto: ewa when the model carries quaternions, "
+                         "else axis (as cli.serve draws it)")
     ap.add_argument("--background", type=float, nargs=3,
                     default=[0.02, 0.02, 0.02])
     ap.add_argument("--shard_bands", type=int, default=0,
@@ -60,6 +66,7 @@ def main(argv=None) -> None:
                                     fovy_deg=args.fovy, device=device)
     config = RenderConfig(
         width=args.width, height=args.height, mode=args.mode, impl=args.impl,
+        footprint=resolve_footprint(args.footprint, g),
         background=tuple(args.background))
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

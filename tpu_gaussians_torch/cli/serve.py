@@ -14,7 +14,7 @@ across requests) and answers:
 
 Usage:
   python -m tpu_gaussians_torch.cli.serve model.npz --port 8008 \
-      [--impl auto] [--device cuda]
+      [--impl auto] [--device cuda] [--footprint auto]
 then open http://127.0.0.1:8008/ in a browser.
 """
 
@@ -36,7 +36,7 @@ import torch
 
 from tpu_gaussians_torch.core import camera as cam
 from tpu_gaussians_torch.core.types import (
-    Camera, RenderConfig, resolve_device, to_device)
+    Camera, RenderConfig, resolve_device, resolve_footprint, to_device)
 from tpu_gaussians_torch.io.npz import load_gaussians_npz
 from tpu_gaussians_torch.ops.dispatch import render
 from tpu_gaussians_torch.utils.profiling import annotate
@@ -56,6 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
                     default="auto")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--fovy", type=float, default=60.0)
+    ap.add_argument("--footprint", choices=["auto", "axis", "ewa"],
+                    default="auto",
+                    help="auto: ewa when the model carries quaternions "
+                         "(cli.fit --footprint ewa, a 3DGS PLY), else axis")
     ap.add_argument("--preset", choices=["quality", "interactive"],
                     default="interactive",
                     help="interactive: sorted-path forward-quality knobs "
@@ -89,15 +93,19 @@ class RenderService:
     device, and `frames` counts every frame rendered. Under a profiler a
     frame is the span `gs.serve.frame`, and its time in `render_tensor`
     the spans `gs.serve.lock_wait` (the queue for the lock) and
-    `gs.serve.render` (camera, render and quantise, under the lock)."""
+    `gs.serve.render` (camera, render and quantise, under the lock).
+    Every frame is drawn with `footprint`, resolved once at load (see
+    `core.types.resolve_footprint`)."""
 
     def __init__(self, npz_path: str, impl: str = "auto", fovy: float = 60.0,
-                 preset: str = "interactive", device: str = "cuda"):
+                 preset: str = "interactive", device: str = "cuda",
+                 footprint: str = "auto"):
         self.device = resolve_device(device)
         self.impl = impl
         self.fovy = fovy
         self.preset = preset
         self.gaussians = load_gaussians_npz(npz_path, device=self.device)
+        self.footprint = resolve_footprint(footprint, self.gaussians)
         self.n = int(self.gaussians.means.shape[0])
         self.frames = 0
         self._lock = threading.Lock()
@@ -111,7 +119,8 @@ class RenderService:
                      else {})
             self._configs[key] = RenderConfig(
                 width=width, height=height, mode=mode, impl=self.impl,
-                background=(0.02, 0.02, 0.02), **knobs)
+                footprint=self.footprint, background=(0.02, 0.02, 0.02),
+                **knobs)
         return self._configs[key]
 
     def camera(self, yaw: float, pitch: float, radius: float, width: int,
@@ -200,6 +209,7 @@ def make_handler(service: RenderService):
                     "num_gaussians": service.n,
                     "impl": service.impl,
                     "preset": service.preset,
+                    "footprint": service.footprint,
                     "device": str(service.device),
                     "sh": service.gaussians.sh is not None,
                     "quats": service.gaussians.quats is not None,
@@ -340,7 +350,7 @@ def run_loop(service: RenderService, frames: int, width: int, height: int,
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     service = RenderService(args.npz, args.impl, args.fovy, args.preset,
-                            device=args.device)
+                            device=args.device, footprint=args.footprint)
     if args.loop:
         run_loop(service, args.loop, args.loop_width, args.loop_height,
                  args.loop_mode, args.loop_format,

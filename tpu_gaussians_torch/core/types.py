@@ -201,6 +201,20 @@ class RenderConfig:
         return self.proj_height if self.proj_height > 0 else self.height
 
 
+def resolve_footprint(footprint: str, g: Gaussians) -> str:
+    """The footprint a model is drawn with (cli.eval, cli.render and
+    cli.serve): "auto" is "ewa" when the model carries quaternions (as
+    `cli.fit --footprint ewa` and 3DGS PLYs export it), else "axis";
+    "ewa" without quaternions raises."""
+    if footprint == "auto":
+        return "ewa" if g.quats is not None else "axis"
+    if footprint not in ("axis", "ewa"):
+        raise ValueError(f"footprint must be auto/axis/ewa, got {footprint!r}")
+    if footprint == "ewa" and g.quats is None:
+        raise ValueError("footprint 'ewa' needs a model with quaternions")
+    return footprint
+
+
 def _check_f32(name: str, x: torch.Tensor) -> None:
     if x.dtype != torch.float32:
         raise ValueError(f"{name} must be float32, got {x.dtype}")

@@ -29,6 +29,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from tpu_gaussians_torch.utils import profiling
+
 NBS = 512      # slots per ordered chunk (the kernel's early-exit granularity)
 TH = 16        # tile height (pixel rows)
 TWC = 128      # tile width (pixel cols)
@@ -127,6 +129,10 @@ def bin_pairs_2d(px, py, sigma_x, sigma_y, op_eff, z_cam, tiles_x: int,
              per-tile capacity, lowest priority first), full_tiles (tiles
              whose true load exceeded cap), clipped_rect_pairs (true
              overlaps lost to the per-gaussian k-tile budget)).
+    Under a profiler the overlaps within that budget (cnt sums to them
+    less dropped_pairs), dropped_pairs and clipped_rect_pairs are the
+    counters gs.binner.pairs, .dropped and .clipped (device scalars;
+    utils/profiling.count).
     """
     n = px.shape[0]
     dev = px.device
@@ -164,4 +170,7 @@ def bin_pairs_2d(px, py, sigma_x, sigma_y, op_eff, z_cam, tiles_x: int,
         "full_tiles": (load > cap).sum(),
         "clipped_rect_pairs": clipped.to(torch.int64).sum(),
     }
+    profiling.count("gs.binner.pairs", starts[-1])
+    profiling.count("gs.binner.dropped", stats["dropped_pairs"])
+    profiling.count("gs.binner.clipped", stats["clipped_rect_pairs"])
     return slots.reshape(-1), cnt, stats

@@ -31,6 +31,14 @@ EMA, model_viewer_main.cpp:243-251):
   `trace()` exports the spans' ranges with everything else.
 - `spans()`: the buffer's records, oldest first (at most `SPAN_BUFFER`;
   records are appended as spans close).
+- `count(name, value)`: a counter, recorded on the terms of a span: the
+  same no-op when no profiler runs (it returns at once, allocating
+  nothing); while one runs, a `Count` record appended to a bounded buffer
+  of its own: its name, thread, the value as given, and the id and root of
+  the innermost span open on its thread. A device tensor stays on the
+  device: recording it launches no kernel and waits for none; a reader
+  takes `.item()` after its window. `counters()` reads the buffer, oldest
+  first (at most `COUNT_BUFFER`).
 - `load_trace_events(logdir)` / `device_program_times_us(fn, prefix)`:
   the device kernel events of the newest trace, and their durations.
   A trace with no device track (a CPU run) gives [], never host events
@@ -135,6 +143,35 @@ def annotate(name: str, root: bool = False):
 def spans() -> List[Span]:
     """Every span recorded while a profiler ran, oldest close first."""
     return list(_spans)
+
+
+class Count(NamedTuple):
+    name: str
+    thread: int                 # threading.get_ident() of the recording thread
+    value: object               # as given (a tensor stays where it was)
+    span: Optional[int]         # id of the innermost span open on the thread
+    root: Optional[int]         # that span's root
+
+
+COUNT_BUFFER = 100_000
+_counts: "collections.deque[Count]" = collections.deque(maxlen=COUNT_BUFFER)
+
+
+def count(name: str, value) -> None:
+    """Record `value` under `name` (see the module docstring): nothing
+    unless a profiler runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = getattr(_open, "stack", None)
+    top = stack[-1] if stack else None
+    _counts.append(Count(name, threading.get_ident(), value,
+                         top.id if top is not None else None,
+                         top.root if top is not None else None))
+
+
+def counters() -> List[Count]:
+    """Every counter recorded while a profiler ran, oldest first."""
+    return list(_counts)
 
 
 def load_trace_events(logdir: str):
