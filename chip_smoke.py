@@ -116,7 +116,13 @@ Phases, each of which fails the run by raising:
               than tiles; the grid of its kernel event in a torch.profiler
               trace); sorted-render gradients against the plain renderer
               on a small scene; K5 and K6 against their twins at 8,192 EWA
-              gaussians on 512x512
+              gaussians on 512x512; K3 and K4 likewise on view 0 of the
+              benchmark's fit cell (100k EWA SH3 gaussians from gsbench's
+              inputs at --seed, 1920x1080, pair budget by auto_pair_k).
+              Every K4 case also checks its walk counter (one launch under
+              a profiler: the same rows, and the counter equal to
+              sorted_bwd.walk_counts on host copies of the lists) and
+              gives K4's device time and its bound on the live pairs
  11. scale ewa accum  the same 100k EWA scene and views in accum mode
               (n >= 10,240 under accum_binned "auto" -> tile-binned): 10
               train steps timed, a profile; K8a (binned_fwd, twice,
@@ -879,20 +885,37 @@ def sorted_fwd_live_bound(gdense, cnt, chunks, tiles_x: int, footprint: str,
             "live_bound_terms_ms": terms, "sm_clock_mhz": mhz}
 
 
-def sorted_fwd_device(k3, calls: int):
-    """(device ms per traced launch, launches traced) of K3 over `calls`
-    calls of k3 (profile_calls: late in a run the trace can miss launches,
-    so the time is per launch it kept)."""
+def sorted_bwd_live_bound(live: int, nbytes: int, footprint: str,
+                          sms: int, mhz: float) -> dict:
+    """K4's least time on this card for the work its function needs: the
+    live pairs (a_raw >= 1e-5; the others add exact zeros, and K4 culls
+    them by warp) at SORTED_BWD_FLOPS_PER_EVAL each at the f32 rate and one
+    exp each at the SFU rate (16 per SM and clock at the SM clock `mhz`),
+    against the launch's `nbytes`."""
+    terms = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+             "f32": 1e3 * SORTED_BWD_FLOPS_PER_EVAL[footprint] * live
+             / F32_FLOPS_PER_S,
+             "sfu exp": 1e3 * live
+             / (SFU_EXP_PER_SM_CLOCK * sms * mhz * 1e6)}
+    term = max(terms, key=terms.get)
+    return {"live_bound_ms": terms[term], "live_bound_by": term,
+            "live_bound_terms_ms": terms, "sm_clock_mhz": mhz}
+
+
+def kernel_device(fn, calls: int, kernel: str = "sorted_fwd_kernel"):
+    """(device ms per traced launch, launches traced) of `kernel` over
+    `calls` calls of fn (profile_calls: late in a run the trace can miss
+    launches, so the time is per launch it kept)."""
     for attempt in range(1, PROFILE_TRIES + 1):
         pad = PROFILE_SHORT_PAD_S if attempt == 1 else PROFILE_PAD_S
-        port = profile_calls(lambda i: k3(), calls, pad)["port_kernels"]
-        if "sorted_fwd_kernel" in port or attempt == PROFILE_TRIES:
+        port = profile_calls(lambda i: fn(), calls, pad)["port_kernels"]
+        if kernel in port or attempt == PROFILE_TRIES:
             break
-        warn(f"profile: window {attempt} kept no launch of "
-             "sorted_fwd_kernel; tracing again")
-    check("sorted_fwd_kernel" in port, f"{PROFILE_TRIES} profiler windows "
-          f"of {calls} K3 calls kept no launch of sorted_fwd_kernel")
-    ms, per_call = port["sorted_fwd_kernel"]
+        warn(f"profile: window {attempt} kept no launch of {kernel}; "
+             "tracing again")
+    check(kernel in port, f"{PROFILE_TRIES} profiler windows of {calls} "
+          f"calls kept no launch of {kernel}")
+    ms, per_call = port[kernel]
     return ms / per_call, round(per_call * calls)
 
 
@@ -941,7 +964,7 @@ def kernel_case(name, g, width, height, knobs, reps, footprint="axis"):
             return sorted_fwd.sorted_tiles(gdense, cnt, tiles_x, axis=axis,
                                            exit_t=exit_t)
         k_ms = time_ms(k3, reps)
-        device_ms, traced = sorted_fwd_device(k3, reps)
+        device_ms, traced = kernel_device(k3, reps)
         p_ms = time_ms(lambda: sorted_fwd.sorted_tiles_plain(
             gdense, cnt, tiles_x, axis=axis, exit_t=exit_t), reps)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1655,11 +1678,16 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
                     reps: int = 20) -> dict:
     """K4 against its plain twin on one view's compositing inputs (the
     binner's lists, K3's acc and chunks_done, a seeded N(0,1) cotangent):
-    error, determinism, CUDA-event times and bound. K3 is held against its
-    twin and itself on the same lists first (sorted_fwd_check), and timed
-    there (CUDA events, and its kernel alone by torch.profiler) beside its
-    bounds on those lists (sorted_fwd_bound, sorted_fwd_live_bound). Raises
-    on a disagreement."""
+    error, determinism, its walk counter (a launch under a profiler: the
+    same rows, and the counter equal to the CPU mirror,
+    `sorted_bwd.walk_counts` on host copies of the lists), CUDA-event and
+    torch.profiler times, and bounds: every composited (slot, pixel) pair
+    at K4's operations (bound_ms) and the live ones (live_bound_ms, at the
+    SM clock read while K4 runs). K3 is held against its twin and itself
+    on the same lists first (sorted_fwd_check), and timed there (CUDA
+    events, and its kernel alone by torch.profiler) beside its bounds on
+    those lists (sorted_fwd_bound, sorted_fwd_live_bound). Raises on a
+    disagreement."""
     import torch
 
     from tpu_gaussians_torch.kernels import sorted_bwd, sorted_fwd
@@ -1667,12 +1695,14 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
     from tpu_gaussians_torch.ops.binning import EXIT_T, NBS, TPS
     from tpu_gaussians_torch.ops.common import prepare_splats
     from tpu_gaussians_torch.ops.projection import camera_z
+    from tpu_gaussians_torch.utils import profiling
 
     axis = footprint == "axis"
     with torch.no_grad():
         s = prepare_splats(g, view, proj, width, height, footprint=footprint)
         gdense, cnt, tiles_x, tiles_y, stats = tiled.tile_lists(
             s, camera_z(g.means, view), height, width, 0, pair_k)
+        del s
         acc, chunks, k3_err, k3_differ, k3_blocks = sorted_fwd_check(
             name, gdense, cnt, tiles_x, tiles_y, height, width, axis, EXIT_T)
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1690,10 +1720,33 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
         check(not bool(bad.any()),
               f"{name}: K4 disagrees with its twin in {int(bad.sum())} "
               f"values (max abs err {err})")
-        k_ms = time_ms(lambda: sorted_bwd.sorted_bwd(*args), reps)
+        del again, ref, bad
+        before = len(profiling.counters())
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            counted = sorted_bwd.sorted_bwd(*args)
+            torch.cuda.synchronize()
+        records = profiling.counters()[before:]
+        check([r.name for r in records] == ["gs.composite.bwd.walks"],
+              f"{name}: K4 under a profiler recorded "
+              f"{[r.name for r in records]}")
+        check(bool(torch.equal(counted, out)),
+              f"{name}: K4 with its walk counter gives other rows")
+        del counted, out
+        walked, unculled = records[0].value.tolist()
+        mirror = sorted_bwd.walk_counts(gdense.cpu(), cnt.cpu(),
+                                        chunks.cpu(), tiles_x, axis)
+        check((walked, unculled) == mirror,
+              f"{name}: K4's walk counter {(walked, unculled)}, the CPU "
+              f"mirror's {mirror}")
+
+        def k4():
+            return sorted_bwd.sorted_bwd(*args)
+        k_ms = time_ms(k4, reps)
+        device_ms, traced = kernel_device(k4, reps, "sorted_bwd_kernel")
+        k4_mhz = clock_while(k4, k_ms)
         p_ms = time_ms(lambda: sorted_bwd.sorted_bwd_plain(*args), 5, 1)
-        blocks = launched_blocks(lambda: sorted_bwd.sorted_bwd(*args),
-                                 "sorted_bwd_kernel")
+        blocks = launched_blocks(k4, "sorted_bwd_kernel")
         slots = int(torch.minimum(cnt, chunks * NBS).sum())
 
         def k3():
@@ -1706,7 +1759,7 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
                     gdense, cnt, tiles_x, axis=axis, exit_t=EXIT_T), 5, 1),
             "sorted_fwd_blocks": k3_blocks}
         (k3_times["sorted_fwd_device_ms"],
-         k3_times["sorted_fwd_device_launches_traced"]) = sorted_fwd_device(
+         k3_times["sorted_fwd_device_launches_traced"]) = kernel_device(
              k3, reps)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         k3_live = sorted_fwd_live_bound(gdense, cnt, chunks, tiles_x,
@@ -1714,31 +1767,66 @@ def sorted_bwd_case(name: str, g, view, proj, width: int, height: int,
     k3_bound = {f"sorted_fwd_{k}": v for k, v in {
         **sorted_fwd_bound(cnt, chunks, footprint), **k3_live}.items()}
     # The least the card could take: the (slot, pixel) pairs the tiles
-    # composited at K4's operations each, against the composited slots,
-    # acc, g8, cnt and chunks_done read once and the rows written once.
+    # composited at K4's operations each (bound_ms), or the live ones
+    # (live_bound_ms; K3's count on the same lists and chunks), against the
+    # composited slots, acc, g8, cnt and chunks_done read once and the rows
+    # written once.
     n_tiles = cnt.shape[0]
     nbytes = (slots * 64 + 2 * 8 * 4 * n_tiles * TPS + 2 * 4 * n_tiles
               + gdense.numel() * 4)
     ops_ms = 1e3 * SORTED_BWD_FLOPS_PER_EVAL[footprint] * slots * TPS / (
         F32_FLOPS_PER_S)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    live = sorted_bwd_live_bound(k3_live["live_pairs"], nbytes, footprint,
+                                 sms, k4_mhz)
     check(blocks > n_tiles, f"{name}: K4 launched {blocks} blocks for "
           f"{n_tiles} tiles")
     case = {"case": name, "footprint": footprint, "pair_k": pair_k,
+            "width": width, "height": height,
             "tiles": n_tiles, "blocks": blocks,
             "blocks_per_tile": blocks / n_tiles,     # K4's cluster size
             "cap": gdense.shape[0] // n_tiles,
             "slots_listed": int(cnt.sum()), "slots_composited": slots,
+            "walked": walked, "walks_unculled": unculled,
+            "walked_share": walked / unculled if unculled else None,
             "max_abs_err": err, "max_abs_ref": float(scale.max()),
-            "ms": k_ms, "plain_ms": p_ms,
+            "ms": k_ms, "device_ms": device_ms,
+            "device_launches_traced": traced, "plain_ms": p_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_share": max(ops_ms, bytes_ms) / device_ms,
+            "composited_pairs": slots * TPS,
+            "live_pairs": k3_live["live_pairs"], **live,
+            "live_bound_share": live["live_bound_ms"] / device_ms,
             "sorted_fwd_max_abs_err": k3_err,
             "sorted_fwd_tiles_exit_differs": k3_differ, **k3_times,
             **k3_bound,
             "stats": {k: int(v) for k, v in stats.items()}}
     log("sorted bwd case " + json.dumps(case))
     return case
+
+
+def fit_cell_view0(seed: int):
+    """(g, view, proj, width, height, pair_k): the benchmark's fit cell
+    (`fit_100k_ewa_sorted_1080p`: 100k EWA SH3 gaussians at 1920x1080,
+    seeded quaternions) from gsbench's own inputs at `seed`, as its first
+    step starts, pool view 0, and the pair budget `auto_pair_k` gives over
+    its pool."""
+    import torch
+
+    from gsbench import harness
+    from tpu_gaussians_torch.models.gaussian_model import RawParams, activate
+    from tpu_gaussians_torch.ops import sorted as tiled
+
+    cell = harness.find_cell(ROOT, "fit_100k_ewa_sorted_1080p")
+    width, height = cell["traffic"]["width"], cell["traffic"]["height"]
+    raw0, views, proj, _, _ = harness.traffic_kind(ROOT, "fit").inputs(
+        cell, seed, torch.device("cuda"))
+    n = raw0["means"].shape[0]
+    g = activate(RawParams(alive=torch.ones((n,), device="cuda"), **raw0))
+    pair_k = tiled.auto_pair_k(g, views, proj.expand(views.shape[0], 4, 4),
+                               width, height, footprint="ewa")
+    return g, views[0], proj, width, height, pair_k
 
 
 def v2_case(name: str, g, view, proj, width: int, height: int, seed: int,
@@ -3589,6 +3677,13 @@ def main() -> int:
             size=(8192, 4)).astype(np.float32), device="cuda"),
         cams_s.view[0], cams_s.proj[0], side, side, args.seed))
     del g_trained, g_e
+    # K4 where the fit cell runs it: its scene's view 0 at 1920x1080, full
+    # tiles of 2,048 slots
+    g_fc, view_fc, proj_fc, w_fc, h_fc, k_fc = fit_cell_view0(args.seed)
+    bwd_cases.append(sorted_bwd_case(
+        "fit_100k_ewa_sorted_1080p_view0", g_fc, view_fc, proj_fc, w_fc,
+        h_fc, "ewa", k_fc, args.seed))
+    del g_fc
 
     # 12. binned vs dense: K8a against K5 through render at ~12k gaussians
     n_bd = 12_288
@@ -3832,7 +3927,11 @@ def main() -> int:
                        bwd_cases[0], grad_max_err_over_scale=max(
                            grad_errs.values()),
                        blocks={c["case"]: [c["blocks"], c["tiles"]]
-                               for c in bwd_cases}))
+                               for c in bwd_cases},
+                       **{k: {c["case"]: c[k] for c in bwd_cases} for k in (
+                           "device_ms", "bound_share", "live_pairs",
+                           "live_bound_ms", "live_bound_by",
+                           "live_bound_share", "walked_share")}))
     extra = {k: {c["case"]: c[k] for c in v2_cases} for k in (
         "bound_term", "bound_terms_ms", "bound_ms_25flop", "sm_clock_mhz",
         "slices", "device_ms", "device_ms_main", "device_ms_slice_sum")}

@@ -65,9 +65,12 @@ from tpu_gaussians_torch.core.types import RenderConfig, gaussians_from_numpy
 from tpu_gaussians_torch.kernels import (
     binned, build, sorted_bwd, sorted_fwd, splat_sep, splat_v1, splat_v2,
     stage)
+from tpu_gaussians_torch.ops import sorted as tsorted
 from tpu_gaussians_torch.ops import splat as tsplat
-from tpu_gaussians_torch.ops.common import SplatInputs
+from tpu_gaussians_torch.ops.common import SplatInputs, prepare_splats
 from tpu_gaussians_torch.ops.dispatch import render
+from tpu_gaussians_torch.ops.projection import camera_z
+from tpu_gaussians_torch.utils import profiling
 
 TILES_X, TILES_Y, CAP = 2, 2, 1024
 
@@ -1365,6 +1368,97 @@ def test_sorted_fwd_kernel_edges(cuda, case, footprint):
                                                     axis=axis)
     assert bool(torch.isfinite(acc).all())
     assert_sorted_fwd_close(acc, chunks, ref, ref_chunks, 1e-6)
+
+
+def binner_lists(footprint, device, n=8000, width=256, height=64, seed=5):
+    """(gdense, cnt, tiles_x): the port's binner lists (2 x 4 tiles at the
+    default capacity, 2048; the middle four full) of a seeded scene of
+    small gaussians, seeded quaternions for the EWA footprint."""
+    rng = np.random.default_rng(seed)
+    arr = dict(
+        means=rng.uniform(-0.7, 0.7, (n, 3)).astype(np.float32),
+        scales=rng.uniform(0.005, 0.05, (n, 3)).astype(np.float32),
+        opacities=rng.uniform(0.05, 0.95, (n,)).astype(np.float32),
+        colors=rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    if footprint == "ewa":
+        arr["quats"] = rng.normal(size=(n, 4)).astype(np.float32)
+    g = gaussians_from_numpy(arr, device=device)
+    c = tcam.orbit_cameras(4, width, height, device=device)[1]
+    with torch.no_grad():
+        s = prepare_splats(g, c.view, c.proj, width, height,
+                           footprint=footprint)
+        gdense, cnt, tiles_x, _, _ = tsorted.tile_lists(
+            s, camera_z(g.means, c.view), height, width)
+    return gdense, cnt, tiles_x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_exit", [False, True])
+@pytest.mark.parametrize("footprint", ["axis", "ewa"])
+@pytest.mark.parametrize("case", ["cull_edges", "binner"])
+def test_sorted_bwd_kernel_culls_exactly(cuda, case, footprint, early_exit):
+    """K4 at its culling rule's edges (cull_edge_lists, all finite) and on
+    binner lists, over every chunk K3 composited or one chunk fewer a tile
+    (an early exit): its twin at K4's tolerance, two launches bit for bit
+    (the second under a profiler, which gives the kernel its walk
+    counter), and the counter's two values those of the CPU mirror
+    (`sorted_bwd.walk_counts`) exactly."""
+    axis = footprint == "axis"
+    if case == "binner":
+        gdense, cnt, tiles_x = binner_lists(footprint, cuda)
+    else:
+        gdense, cnt, tiles_x = sorted_fwd_edge_inputs(case, axis, cuda)
+    acc, chunks = sorted_fwd.sorted_tiles(gdense, cnt, tiles_x, axis=axis)
+    if early_exit:
+        chunks = torch.clamp(chunks - 1, min=0)
+    g8 = torch.randn(acc.shape, generator=torch.Generator().manual_seed(12)
+                     ).to(cuda)
+    args = (gdense, cnt, acc, g8, chunks, tiles_x, axis)
+    out = sorted_bwd.sorted_bwd(*args)
+    before = len(profiling.counters())
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        again = sorted_bwd.sorted_bwd(*args)
+        torch.cuda.synchronize()
+    assert torch.equal(out, again)          # deterministic: no atomics
+    ref = sorted_bwd.sorted_bwd_plain(*args)
+    assert_sorted_moments_close(out.cpu(), ref.cpu())
+    records = profiling.counters()[before:]
+    assert [r.name for r in records] == ["gs.composite.bwd.walks"]
+    walked, slots = records[0].value.tolist()
+    assert (walked, slots) == sorted_bwd.walk_counts(
+        gdense.cpu(), cnt.cpu(), chunks.cpu(), tiles_x, axis)
+    assert slots == 32 * int(torch.minimum(cnt, chunks * 512).sum())
+    assert walked < slots or slots == 0
+
+
+@pytest.mark.cuda
+def test_sorted_bwd_counts_walks_only_under_a_profiler(cuda):
+    """No profiler: K4's wrapper allocates the rows alone and records no
+    counter. Under one: the rows and the counter pair, and one record."""
+    gdense, cnt = synthetic_lists(False, device=cuda)
+    acc, chunks = sorted_fwd.sorted_tiles(gdense, cnt, TILES_X)
+    g8 = torch.randn(acc.shape, generator=torch.Generator().manual_seed(13)
+                     ).to(cuda)
+    args = (gdense, cnt, acc, g8, chunks, TILES_X, False)
+    sorted_bwd.sorted_bwd(*args)
+    torch.cuda.synchronize()
+
+    def allocations():
+        return torch.cuda.memory_stats()["allocation.all.allocated"]
+
+    for traced, made, recorded in ((False, 1, 0), (True, 2, 1)):
+        n_alloc, n_rec = allocations(), len(profiling.counters())
+        if traced:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]):
+                sorted_bwd.sorted_bwd(*args)
+        else:
+            assert not profiling.active()
+            sorted_bwd.sorted_bwd(*args)
+        torch.cuda.synchronize()
+        assert allocations() - n_alloc == made
+        assert len(profiling.counters()) - n_rec == recorded
 
 
 @pytest.mark.cuda

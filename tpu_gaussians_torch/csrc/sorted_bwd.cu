@@ -24,7 +24,9 @@
 //
 // Bound: f32 ALU work, 66 operations (60 for the axis footprint) and one exp
 // per (slot, pixel) composited, counted from the pixel loop below, against
-// 64 B read and written per slot and 64 B read per pixel (acc, g8).
+// 64 B read and written per slot and 64 B read per pixel (acc, g8). Most
+// composited (slot, pixel) pairs lie outside the slot's 1e-5 ellipse, where
+// the pixel loop adds exact zeros: the culling below skips them.
 //
 // Design. The walk over a tile's slots is sequential per pixel (T and P carry
 // from slot to slot), but pixels are independent. So each 16x128 tile is
@@ -44,14 +46,41 @@
 // the pass, in cluster-rank order, read through distributed shared memory,
 // and writes them as whole rows. The block rows are double-buffered, so one
 // barrier per pass suffices. The division by 1 - a (at least 1e-4) is
-// __fdividef, 2 ulp. No atomics and no global scratch: two launches give the
-// same bits.
+// __fdividef, 2 ulp. No atomics in the rows and no global scratch: two
+// launches give the same bits.
+//
+// Culling, exact, by sorted_fwd.cu's rule (K3's): where a_raw < 1e-5 at
+// all of a warp's pixels, its pass over the slot adds 0 to every sum, adds
+// 0 to P and multiplies T by 1, and its partial row is +-0. As each pass is
+// staged, thread s bounds slot s with K3's extents (warp_mask, a copy of
+// K3's: |dy| <= sqrt(Q a / det) + 1, |dx| <= sqrt(Q c / det) + 1, Q = 1.01
+// (2 ln(op / 1e-5) + 1e-4), conics that are not positive definite, thinner
+// than det >= 2e-3 a c, or not finite never culled). A slot whose y-extent
+// misses the block's two rows is listed for none of its warps, one whose
+// x-extent misses a warp's 32 columns not for that warp. Each warp lists
+// its slots of the pass in slot order (two ballots) and walks the list
+// with no branch, pixel loop and reduce-scatter alike; the block sum adds
+// the warps' rows that were listed, in warp order, to +0. So every row is
+// the unculled kernel's, but for the sign of a zero. kernels/sorted_fwd.
+// slot_extent and cull_blocks mirror the rule on the CPU. The walk is
+// unrolled 4 deep: the next slots' rows and exps overlap this one's chain
+// of T and P (on the H100, 4% less time than 2 deep on the fit cell's
+// 1080p view, and the flagship's few large gaussians back at the unculled
+// kernel's time). What is left is issue-bound: some 250 instructions a
+// walked (slot, warp), a quarter of them the reduce-scatter; skipping it
+// where a listed warp's a_s is 0 at every pixel saved nothing.
+//
+// Counter: given a non-null `walks`, each block adds, with one atomic
+// each after its last pass, the walks its warps' lists held ((slot, warp)
+// pairs) to walks[0] and the unculled kernel's (composited slots x 4
+// warps) to walks[1]; with a null one it does no more than before.
 //
 // Inputs: gdense (n_tiles*cap, 16) f32 rows [px, py, conic_a, conic_b,
 // conic_c, op, f(8), 0, 0]; cnt, chunks_done (n_tiles,) int32; acc, g8
-// (8, n_tiles*2048) f32, pixel l of tile t at column t*2048 + l. Output
-// out (n_tiles*cap, 16) f32. Build: nvcc -gencode arch=compute_90a,code=sm_90a
-// -O3 -std=c++17 -shared -Xcompiler -fPIC.
+// (8, n_tiles*2048) f32, pixel l of tile t at column t*2048 + l; walks
+// (2,) int64 or null. Output out (n_tiles*cap, 16) f32. Build: nvcc
+// -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared -Xcompiler
+// -fPIC.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -72,10 +101,54 @@ constexpr int THREADS = TWC;     // a thread per column
 constexpr int WARPS = THREADS / 32;
 constexpr int SB = 64;           // slots staged per pass
 constexpr int SR = SB / S;       // slots of a pass each block finishes
+constexpr bool CULL = true;      // list the slots by their extents
+constexpr bool ROW_CULL = true;  // ... by their y-extents too
+constexpr int ALL_WARPS = (1 << 4) - 1;
 constexpr float ALPHA_CUTOFF = 1e-5f;
 constexpr float A_MAX = 0.9999f;
+constexpr float Q_SLACK = 1e-4f;       // the extent's slack in Q, added
+constexpr float Q_SCALE = 1.01f;       // and then as a factor
+constexpr float MIN_DET_RATIO = 2e-3f; // thinner conics are never culled
+constexpr float MARGIN_PX = 1.f;       // the extent's margin in pixels
 
 static_assert(SR * GD / 4 <= THREADS, "one float4 of finished rows a thread");
+static_assert(SB == 64 && SB <= THREADS, "two ballots list a pass");
+static_assert(WARPS == 4, "a mask bit per warp");
+
+// sorted_fwd.cu's warp_mask, letter for letter (a test holds the two
+// copies equal): the warps (bit w: columns 32w ... 32w + 31) of the block
+// whose rows have centres ylo ... yhi that evaluate the slot with row
+// h0 = [px, py, a, b], h1 = [c, op, ...]; xt is the tile's first column.
+// The rule is kernels/sorted_fwd.slot_extent's.
+template <bool AXIS>
+__device__ __forceinline__ int warp_mask(float4 h0, float4 h1, int xt,
+                                         float ylo, float yhi) {
+  if (!CULL) return ALL_WARPS;
+  const float px = h0.x, py = h0.y, a = h0.z, b = AXIS ? 0.f : h0.w;
+  const float c = h1.x, op = h1.y;
+  const float ac = a * c;
+  const float det = __fsub_rn(ac, __fmul_rn(b, b));   // as the mirror: no fma
+  const bool cullable = isfinite(px) && isfinite(py) && isfinite(a) &&
+                        isfinite(b) && isfinite(c) && isfinite(op) &&
+                        isfinite(ac) && a > 0.f && c > 0.f && det > 0.f &&
+                        det >= MIN_DET_RATIO * ac;
+  if (!cullable) return ALL_WARPS;
+  if (!(op > 0.f)) return 0;
+  const float q = 2.f * logf(op / ALPHA_CUTOFF) + Q_SLACK;
+  if (!(q > 0.f)) return 0;
+  const float qe = q * Q_SCALE;
+  const float ex = sqrtf(qe * c / det) + MARGIN_PX;
+  const float ey = sqrtf(qe * a / det) + MARGIN_PX;
+  if (ROW_CULL && !(py - ey <= yhi && py + ey >= ylo)) return 0;
+  int mask = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const float xl = static_cast<float>(xt + 32 * w) + 0.5f;
+    const float xh = static_cast<float>(xt + 32 * w + 31) + 0.5f;
+    if (px - ex <= xh && px + ex >= xl) mask |= 1 << w;
+  }
+  return mask;
+}
 
 // One step of warp_reduce_scatter16: lanes with bit BIT set keep the upper
 // HALF of the values still held and send the lower half to the partner lane,
@@ -109,10 +182,15 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
                   const float* __restrict__ g8,
                   const int* __restrict__ chunks_done,
                   float* __restrict__ out,
+                  unsigned long long* __restrict__ walks,
                   int tiles_x, int n_tiles, int cap) {
   __shared__ float4 rows[SB * GD / 4];             // 4 KB: staged slot rows
   __shared__ float4 part4[WARPS * SB * GD / 4];    // 16 KB: warp partial rows
   __shared__ float4 bpart[2][SB * GD / 4];         // 8 KB: block rows, 2 passes
+  __shared__ unsigned char smask[SB];              // the slots' warp masks
+  __shared__ unsigned char list[WARPS][SB];        // each warp's listed slots
+  __shared__ unsigned long long listed[WARPS];     // ... as bits
+  __shared__ int walked[WARPS];                    // list lengths, summed
   float* part = reinterpret_cast<float*>(part4);   // [WARPS][SB][16]
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -122,8 +200,11 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
   const int lane = threadIdx.x & 31;
   const int col = threadIdx.x;
   const int row0 = PPT * rank;               // rows row0, row0 + 1
-  const float gx = static_cast<float>((tile % tiles_x) * TWC + col) + 0.5f;
+  const int xt = (tile % tiles_x) * TWC;
+  const float gx = static_cast<float>(xt + col) + 0.5f;
   const int gy0 = (tile / tiles_x) * TH + row0;
+  const float ylo = static_cast<float>(gy0) + 0.5f;
+  const float yhi = static_cast<float>(gy0 + PPT - 1) + 0.5f;
 
   // Per pixel: the cotangent, ctg = acc . g8, T and the prefix P.
   const size_t plane = static_cast<size_t>(n_tiles) * TPS;
@@ -149,16 +230,39 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
       out + static_cast<size_t>(tile) * cap * GD);
 
   int buf = 0;
+  int n_walked = 0;          // the walks of this warp's lists
   for (int base = 0; base < n_slots; base += SB, buf ^= 1) {
     const int m = min(SB, n_slots - base);
-    // The previous pass's reads of rows and part are over.
+    // The previous pass's reads of rows, part, smask and listed are over.
     __syncthreads();
     for (int k = threadIdx.x; k < m * (GD / 4); k += THREADS)
       rows[k] = src[static_cast<size_t>(base) * (GD / 4) + k];
+    if (threadIdx.x < SB) {
+      const int s = threadIdx.x;
+      const float4* h = src + static_cast<size_t>(base + s) * (GD / 4);
+      smask[s] = s < m ? warp_mask<AXIS>(h[0], h[1], xt, ylo, yhi) : 0;
+    }
     __syncthreads();
 
-#pragma unroll 2
-    for (int s = 0; s < m; ++s) {
+    // This warp's list: slots lane and lane + 32 where its bit is set.
+    const bool in0 = (smask[lane] >> warp) & 1;
+    const bool in1 = (smask[lane + 32] >> warp) & 1;
+    const unsigned lo = __ballot_sync(0xffffffffu, in0);
+    const unsigned hi = __ballot_sync(0xffffffffu, in1);
+    const unsigned below = (1u << lane) - 1u;
+    if (in0) list[warp][__popc(lo & below)] = lane;
+    if (in1) list[warp][__popc(lo) + __popc(hi & below)] = lane + 32;
+    if (lane == 0)
+      listed[warp] = lo | (static_cast<unsigned long long>(hi) << 32);
+    const int n_list = __popc(lo) + __popc(hi);
+    n_walked += n_list;
+    __syncwarp();
+
+    // Walk the listed slots in order: every slot left out has a_raw under
+    // the cutoff at all of this warp's pixels.
+#pragma unroll 4
+    for (int j = 0; j < n_list; ++j) {
+      const int s = list[warp][j];
       const float4 h0 = rows[s * 4 + 0];    // px, py, a, b
       const float4 h1 = rows[s * 4 + 1];    // c, op, f0, f1
       const float4 h2 = rows[s * 4 + 2];    // f2, f3, f4, f5
@@ -206,11 +310,13 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
     }
     __syncthreads();
 
-    // The block's row of each slot: its warps' partials in warp order.
+    // The block's row of each slot: its listing warps' partials in warp
+    // order (an unlisted warp's is +-0).
     for (int k = threadIdx.x; k < m * (GD / 4); k += THREADS) {
-      float4 sum = part4[k];
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int w = 1; w < WARPS; ++w) {
+      for (int w = 0; w < WARPS; ++w) {
+        if (!((listed[w] >> (k >> 2)) & 1)) continue;
         const float4 p = part4[w * SB * (GD / 4) + k];
         sum.x += p.x; sum.y += p.y; sum.z += p.z; sum.w += p.w;
       }
@@ -232,8 +338,14 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
       dst[static_cast<size_t>(base + r) * 4 + q] = sum;
     }
   }
+  if (lane == 0) walked[warp] = n_walked;
   // No block leaves while another may still read its shared memory.
   cluster.sync();
+  if (walks != nullptr && threadIdx.x == 0 && n_slots > 0) {
+    atomicAdd(&walks[0], static_cast<unsigned long long>(
+        walked[0] + walked[1] + walked[2] + walked[3]));
+    atomicAdd(&walks[1], static_cast<unsigned long long>(n_slots) * WARPS);
+  }
 
   // Slots the forward did not composite: past cnt, or in chunks after the exit.
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -247,16 +359,18 @@ sorted_bwd_kernel(const float* __restrict__ gdense,
 extern "C" cudaError_t sorted_bwd_launch(const float* gdense, const int* cnt,
                                          const float* acc, const float* g8,
                                          const int* chunks_done, float* out,
-                                         int tiles_x, int n_tiles, int cap,
-                                         int axis, cudaStream_t stream) {
+                                         long long* walks, int tiles_x,
+                                         int n_tiles, int cap, int axis,
+                                         cudaStream_t stream) {
   if (n_tiles <= 0) return cudaSuccess;
   const int blocks = n_tiles * S;   // a cluster of S blocks per tile
+  auto* w = reinterpret_cast<unsigned long long*>(walks);
   if (axis) {
     sorted_bwd_kernel<true><<<blocks, THREADS, 0, stream>>>(
-        gdense, cnt, acc, g8, chunks_done, out, tiles_x, n_tiles, cap);
+        gdense, cnt, acc, g8, chunks_done, out, w, tiles_x, n_tiles, cap);
   } else {
     sorted_bwd_kernel<false><<<blocks, THREADS, 0, stream>>>(
-        gdense, cnt, acc, g8, chunks_done, out, tiles_x, n_tiles, cap);
+        gdense, cnt, acc, g8, chunks_done, out, w, tiles_x, n_tiles, cap);
   }
   return cudaGetLastError();
 }

@@ -25,19 +25,30 @@ with, summed over the tile's pixels,
 A tile processes exactly the chunks_done chunks its forward composited;
 the rows of other slots are zero. `ops/sorted.moment_postpass` turns the
 moments into gradients of the slot rows.
+
+The kernel walks a slot only in the warps (2 rows of 32 columns) where
+K3's culling rule (`kernels/sorted_fwd.cull_blocks`) finds that its a_raw
+can reach the cutoff; the others would add exact zeros. While a profiler
+runs, `sorted_bwd` records one counter, `gs.composite.bwd.walks`: an
+int64 (2,) device tensor of the walks its lists held and the walks of the
+unculled kernel (composited slots x 32); `walk_counts` is its CPU mirror.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from tpu_gaussians_torch.kernels import build
 from tpu_gaussians_torch.kernels.sorted_fwd import (
-    FEAT_PAD, GD_ROWS, _check, clamp_alpha, exclusive_cumprod, slot_alpha,
-    tile_pixels)
-from tpu_gaussians_torch.ops.binning import A_MAX, ALPHA_CUTOFF, NBS, TPS
+    CLUSTER, FEAT_PAD, GD_ROWS, WARP_COLS, _check, clamp_alpha, cull_counts,
+    exclusive_cumprod, slot_alpha, tile_pixels)
+from tpu_gaussians_torch.ops.binning import A_MAX, ALPHA_CUTOFF, NBS, TH, TPS
+from tpu_gaussians_torch.utils import profiling
 
 launches = 0   # kernel launches made by sorted_bwd
+WALK_PIXELS = (TH // CLUSTER) * WARP_COLS   # one warp's pixels of a tile
 
 
 def _check_bwd(gdense, cnt, acc, g8, chunks_done):
@@ -112,6 +123,18 @@ def sorted_bwd_plain(gdense: torch.Tensor, cnt: torch.Tensor,
     return out.reshape(n_tiles * cap, GD_ROWS)
 
 
+def walk_counts(gdense: torch.Tensor, cnt: torch.Tensor,
+                chunks_done: torch.Tensor, tiles_x: int, axis: bool
+                ) -> Tuple[int, int]:
+    """The kernel's counter, by the culling rule's CPU mirror: (walked,
+    slots), the (slot, block, warp) walks its lists hold over the
+    composited slots (`cull_counts`' evaluated pairs, WALK_PIXELS each) and
+    those of the unculled kernel, composited slots x 32."""
+    c = cull_counts(gdense, cnt, chunks_done, tiles_x, axis)
+    return (c["evaluated_pairs"] // WALK_PIXELS,
+            c["composited_pairs"] // WALK_PIXELS)
+
+
 def sorted_bwd(gdense: torch.Tensor, cnt: torch.Tensor, acc: torch.Tensor,
                g8: torch.Tensor, chunks_done: torch.Tensor, tiles_x: int,
                axis: bool = False) -> torch.Tensor:
@@ -123,7 +146,11 @@ def sorted_bwd(gdense: torch.Tensor, cnt: torch.Tensor, acc: torch.Tensor,
         return sorted_bwd_plain(gdense, cnt, acc, g8, chunks_done, tiles_x,
                                 axis)
     out = torch.empty_like(gdense)
-    build.launch("sorted_bwd", (gdense, cnt, acc, g8, chunks_done, out),
-                 tiles_x, n_tiles, cap, int(axis))
+    walks = (torch.zeros(2, dtype=torch.int64, device=gdense.device)
+             if profiling.active() else None)
+    build.launch("sorted_bwd", (gdense, cnt, acc, g8, chunks_done, out,
+                                walks), tiles_x, n_tiles, cap, int(axis))
     launches += 1
+    if walks is not None:
+        profiling.count("gs.composite.bwd.walks", walks)
     return out

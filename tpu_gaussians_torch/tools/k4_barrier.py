@@ -96,7 +96,8 @@ def main() -> int:
             n_tiles = cnt.shape[0]
             out = torch.empty_like(gdense)
             ptrs = [ctypes.c_void_p(t.data_ptr())
-                    for t in (gdense, cnt, acc, g8, chunks, out)]
+                    for t in (gdense, cnt, acc, g8, chunks, out)] + [
+                ctypes.c_void_p(None)]        # no walk counter
 
             def k4():
                 sorted_bwd.sorted_bwd(gdense, cnt, acc, g8, chunks, tiles_x,

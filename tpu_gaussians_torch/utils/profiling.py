@@ -38,7 +38,8 @@ EMA, model_viewer_main.cpp:243-251):
   the innermost span open on its thread. A device tensor stays on the
   device: recording it launches no kernel and waits for none; a reader
   takes `.item()` after its window. `counters()` reads the buffer, oldest
-  first (at most `COUNT_BUFFER`).
+  first (at most `COUNT_BUFFER`). `active()` tells a caller whether a
+  profiler runs, so that it makes a counter's value only then.
 - `load_trace_events(logdir)` / `device_program_times_us(fn, prefix)`:
   the device kernel events of the newest trace, and their durations.
   A trace with no device track (a CPU run) gives [], never host events
@@ -129,6 +130,11 @@ class _Span:
         _open.stack.pop()
         _spans.append(Span(self.name, threading.get_ident(), self.t0, t1,
                            self.id, self.parent, self.root))
+
+
+def active() -> bool:
+    """Whether a profiler runs: the flag `annotate` and `count` test."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def annotate(name: str, root: bool = False):
